@@ -8,17 +8,30 @@ printing a line of its own; any miss raises, so the exit code is nonzero
 and no result line is printed:
 
 1. card:   nvidia-smi name / power limit and torch's device name;
-2. build:  both rANS kernels (jxl_tpu_torch/csrc/*.cu) with nvcc, timed;
+2. build:  both rANS sources (jxl_tpu_torch/csrc/*.cu), one nvcc each, in
+           parallel, timed;
 3. kernels vs plain at the bench shapes (the port's own token stream of
            the 512x768 bench image: lanes 256, T 4731, 765 contexts):
-           encode kernel and both decode phases (with the carry) must equal
-           their plain torch versions bit for bit; both timed with CUDA
-           events;
-4. main path: encode_image + decode_bytes of the bench image at d=1 e7 on
-           the card; the kernels must have run (launch counts), PSNR / bpp
-           must match the quality anchor, and the card's pixels must be
-           within 1 LSB of the plain path on the CPU;
-5. times:  warm single-image encode and decode throughput.
+           encode kernel (B3) and both single-stream decode phases (B1, with
+           the carry) must equal their plain torch versions bit for bit;
+           both timed with CUDA events;
+3b. batched decode kernel (B2) vs plain at the bench shape: grid rows of
+           the bench image (10 sweep distances, and 32 points), both phases
+           as the grid decode hands them over, bit for bit (values, states,
+           pointers); every stream must equal B1's decode; timed;
+4. main path, single image: encode_image + decode_bytes at d=1 e7 on the
+           card; the kernels must have run (launch counts), PSNR / bpp must
+           match the quality anchor, and the card's pixels must be within
+           1 LSB of the plain path on the CPU;
+4b. main path, the sweep row: encode_image_grid + decode_bytes_grid_stacked
+           of the bench image over the reference harness's 10 distances at
+           e7, under each of the five strategies; one encode launch per
+           point, B2 twice per row and B1 never; BASELINE containers equal
+           encode_image's, the d=1 point meets the anchor, values and pixels
+           equal the per-stream decodes on the card; bytes and PSNR printed
+           per point;
+5. times:  warm single-image encode and decode throughput;
+5b. times: warm grid encode and grid decode throughput, 32 points at d=1.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -30,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,6 +52,10 @@ ANCHOR_PSNR_DB = 38.43
 ANCHOR_BPP = 1.5313
 PSNR_TOL_DB = 0.05
 BPP_TOL_REL = 0.005
+
+# the reference harness's RD-sweep distance row (jxl_tpu/bench/sweep.py)
+RUST_DISTANCES = (0.5, 1.0, 1.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
+GRID_BATCH = 32  # points per grid row that bench.py times
 
 
 def bench_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
@@ -113,12 +131,22 @@ def main() -> int:
     dev = torch.device("cuda:0")
     print(f"[1 card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.config import CodecConfig, Strategy
     from jxl_tpu_torch.codec.container import read_container
-    from jxl_tpu_torch.codec.decode import decode_bytes, decode_bytes_device, decode_values
+    from jxl_tpu_torch.codec.decode import (
+        _padded_values,
+        _scan_one,
+        _unpad,
+        decode_bytes,
+        decode_bytes_device,
+        decode_bytes_grid_stacked,
+        decode_values,
+        decode_values_grid,
+    )
     from jxl_tpu_torch.codec.encode import (
         _step_ctx_v8,
         encode_image,
+        encode_image_grid,
         entropy_inputs,
         pick_lanes,
         tokens_from_rgb,
@@ -127,16 +155,16 @@ def main() -> int:
     from jxl_tpu_torch.core.device import resolve_device
     from jxl_tpu_torch.cuda_build import BUILD_LOGS, build
     from jxl_tpu_torch.entropy import cuda_rans_enc
-    from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
+    from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
     from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
-    from jxl_tpu_torch.entropy.grouped import decode_grouped
+    from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched
 
     resolve_device(dev)
 
-    # ---- 2. build
+    # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    for name in ("rans_dec", "rans_enc"):
-        build(name)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        list(ex.map(build, ("rans_dec", "rans_enc")))
     build_s = time.perf_counter() - t0
     print(f"[2 build] rans_dec + rans_enc built in {build_s:.2f} s")
     for name, log in BUILD_LOGS.items():
@@ -202,8 +230,63 @@ def main() -> int:
         f"kernel {dec_ms:.3f} ms, plain {dec_plain_ms:.1f} ms (A + B)"
     )
 
-    # ---- 4. main path
+    # ---- 3b. batched decode kernel (B2) vs plain at the bench shape
     cfg = CodecConfig(distance=1.0, effort=7)
+    rows_of = {10: RUST_DISTANCES, GRID_BATCH: tuple(float(d) for d in np.linspace(0.5, 14.0, GRID_BATCH))}
+    b2_ms, b2_err, b2_plain_ms = {}, 0, None
+    for B, dists in rows_of.items():
+        streams = [read_container(b) for b in encode_image_grid(img, cfg, dists, device=dev)]
+        calls, errs = [], []
+
+        def probe(*args, T, lanes):
+            """B2 as the grid decode calls it, held against its plain version."""
+            k = decode_grouped_batched_cuda(*args, T=T, lanes=lanes)
+            errs.append(max_abs_diff(zip(k, decode_grouped_batched(*args, T=T, lanes=lanes))))
+            calls.append((args, T, lanes, k))
+            return k
+
+        grid_vals = _unpad(_padded_values(streams, dev, probe), lay)
+        torch.cuda.synchronize()
+        b2_err = max(b2_err, *errs)
+        if b2_err != 0:
+            raise AssertionError(f"batched decode kernel differs from its plain version at B={B} (max |d| {b2_err})")
+        counts = torch.from_numpy(np.stack([np.concatenate([s.wcounts, s.mcounts]) for s in streams]).astype(np.int32))
+        end_ptrs = calls[-1][3][2].cpu().reshape(2, B, G).permute(1, 0, 2).reshape(B, 2 * G)
+        if not torch.equal(end_ptrs, counts):
+            raise AssertionError(f"batched decode kernel did not consume exactly the encoded streams at B={B}")
+        for i, s in enumerate(streams):
+            if not torch.equal(grid_vals[i], decode_values(s, dev)):
+                raise AssertionError(f"stream {i} of B={B}: batched decode differs from the single-stream kernel")
+
+        def run_phases(fn):
+            for args, T, lanes, _k in calls:
+                fn(*args, T=T, lanes=lanes)
+
+        b2_ms[B] = cuda_ms(torch, lambda: run_phases(decode_grouped_batched_cuda), 20)
+        if B == 10:
+            # B1 alone on the row's densest stream (d=0.5, the most words and
+            # mantissa bytes per step): a batch runs at its slowest chain's pace
+            dense = []
+
+            def probe_b1(*args, T, lanes):
+                dense.append((args, T, lanes))
+                return _scan_one(*args, T=T, lanes=lanes)
+
+            _padded_values(streams[:1], dev, probe_b1)
+            b1_dense_ms = cuda_ms(torch, lambda: [_scan_one(*a, T=T, lanes=n) for a, T, n in dense], 20)
+        if B == GRID_BATCH:
+            b2_plain_ms = cuda_ms(torch, lambda: run_phases(decode_grouped_batched), 2)
+        print(
+            f"[3b batched decode kernel] B={B}: both phases bit-exact vs plain (values, states, pointers), "
+            f"every stream equals B1's; kernel {b2_ms[B]:.3f} ms (A + B)"
+        )
+    print(
+        f"[3b batched decode kernel] B2 B=10 {b2_ms[10]:.3f} ms, B={GRID_BATCH} {b2_ms[GRID_BATCH]:.3f} ms; "
+        f"B1 B=1 {dec_ms:.3f} ms (phase 3, d=1), {b1_dense_ms:.3f} ms (d={RUST_DISTANCES[0]}); "
+        f"plain B={GRID_BATCH} {b2_plain_ms:.1f} ms"
+    )
+
+    # ---- 4. main path, single image
     encode_grouped_cuda.launches = 0
     decode_grouped_cuda.launches = 0
     data = encode_image(img, cfg, device=dev)
@@ -233,6 +316,49 @@ def main() -> int:
     if lsb > 1:
         raise AssertionError(f"card vs CPU pixels differ by {lsb} LSB (> 1)")
 
+    # ---- 4b. main path, the sweep row under every strategy
+    n_b2 = 0
+    for strat in Strategy:
+        cfg_s = CodecConfig(effort=7, strategy=strat)
+        encode_grouped_cuda.launches = 0
+        decode_grouped_cuda.launches = 0
+        decode_grouped_batched_cuda.launches = 0
+        datas = encode_image_grid(img, cfg_s, RUST_DISTANCES, device=dev)
+        out = decode_bytes_grid_stacked(datas, device=dev)
+        torch.cuda.synchronize()
+        ne, n1, n2 = encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches
+        if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0:
+            raise AssertionError(f"{strat.name} row launches: encode {ne}, B2 {n2}, B1 {n1} (want >= 10, 2, 0)")
+        n_enc += ne
+        n_b2 += n2
+        if out is None or tuple(out.shape) != (len(RUST_DISTANCES), h, w, 3):
+            raise AssertionError(f"{strat.name} row decoded to {None if out is None else tuple(out.shape)}")
+        streams = [read_container(b) for b in datas]
+        grid_vals = decode_values_grid(streams, dev)
+        for i, s in enumerate(streams):
+            if not torch.equal(grid_vals[i], decode_values(s, dev)):
+                raise AssertionError(f"{strat.name} d={RUST_DISTANCES[i]}: grid values differ from the per-stream decode")
+            if not torch.equal(out[i], decode_bytes_device(datas[i], device=dev)):
+                raise AssertionError(f"{strat.name} d={RUST_DISTANCES[i]}: grid pixels differ from the per-stream decode")
+        out_np = out.cpu().numpy()
+        q_row = [psnr(img, o) for o in out_np]
+        print(
+            f"[4b {strat.name}] launches encode {ne}, B2 {n2}, B1 {n1}; "
+            + ", ".join(f"d={d}: {len(b)} B {q:.4f} dB" for d, b, q in zip(RUST_DISTANCES, datas, q_row))
+        )
+        if strat is Strategy.BASELINE:
+            for d, b in zip(RUST_DISTANCES, datas):
+                if b != encode_image(img, CodecConfig(distance=d, effort=7), device=dev):
+                    raise AssertionError(f"BASELINE grid container at d={d} differs from encode_image's")
+            i1 = RUST_DISTANCES.index(1.0)
+            g_db, g_bpp = q_row[i1], len(datas[i1]) * 8 / (h * w)
+            if abs(g_db - ANCHOR_PSNR_DB) > PSNR_TOL_DB or abs(g_bpp - ANCHOR_BPP) > BPP_TOL_REL * ANCHOR_BPP:
+                raise AssertionError(f"grid d=1 point {g_db:.4f} dB / {g_bpp:.4f} bpp misses the anchor")
+            print(
+                f"[4b BASELINE] containers byte-identical to encode_image; d=1 point {g_bpp:.4f} bpp, "
+                f"{g_db:.4f} dB; values and pixels equal the per-stream decodes on every row"
+            )
+
     # ---- 5. times
     mp = h * w / 1e6
     reps = 5
@@ -256,11 +382,30 @@ def main() -> int:
         f"(median {1e3 * np.median(dec_ts):.1f} ms, min {1e3 * min(dec_ts):.1f} ms), {reps} warm runs"
     )
 
+    # ---- 5b. grid times: a row of GRID_BATCH points at d=1, as bench.py times it
+    dists = [1.0] * GRID_BATCH
+    datas = encode_image_grid(img, cfg, dists, device=dev)
+    decode_bytes_grid_stacked(datas, device=dev)
+    genc_ts = wall(lambda: encode_image_grid(img, cfg, dists, device=dev))
+    gdec_ts = wall(lambda: decode_bytes_grid_stacked(datas, device=dev))
+    gmp = GRID_BATCH * mp
+    print(
+        f"[5b times] {kind} ({smi}): grid of {GRID_BATCH} at d=1: encode "
+        f"{gmp / np.median(genc_ts):.2f} MP/s (median {1e3 * np.median(genc_ts):.1f} ms, "
+        f"min {1e3 * min(genc_ts):.1f} ms), decode {gmp / np.median(gdec_ts):.2f} MP/s "
+        f"(median {1e3 * np.median(gdec_ts):.1f} ms, min {1e3 * min(gdec_ts):.1f} ms), {reps} warm runs"
+    )
+
     kernels = [
         {
             "name": "rans_decode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans.py:239", "launches": n_dec,
             "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+        },
+        {
+            "name": "rans_decode_batched", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
+            "replaces": "jxl_tpu/entropy/pallas_rans.py:272", "launches": n_b2,
+            "max_abs_err": b2_err, "ms": b2_ms[GRID_BATCH], "plain_ms": b2_plain_ms,
         },
         {
             "name": "rans_encode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_enc.cu",

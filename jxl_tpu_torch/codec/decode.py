@@ -1,4 +1,4 @@
-"""JXT decoder, lossy single-image path (port of `jxl_tpu/codec/decode.py`).
+"""JXT decoder, lossy path (port of `jxl_tpu/codec/decode.py`).
 
 Container bytes -> (host) parse -> one upload of the per-group word and
 mantissa buckets -> the grouped rANS decode kernel in two phases joined by
@@ -6,10 +6,15 @@ its carry (phase A: maps, CfL, nnz map, DC; phase B: AC, whose per-step
 contexts come from the nnz map phase A decoded) -> dequant, IDCT ladder,
 CfL, EPF and XYB -> sRGB, as torch ops on the same device.
 
+A single stream decodes through kernel B1 (`decode_grouped_cuda`). A grid
+row — same-geometry streams, such as one image's RD-sweep points —
+decodes through kernel B2 (`decode_grouped_batched_cuda`): one launch per
+phase for the whole row, then reconstruction stream by stream.
+
 Entry points take an explicit `device`; `resolve_device` turns TF32 off
 there on CUDA. Not ported yet, and raising NotImplementedError: lossless /
-modular streams (codec/lossless.py), JXTS striped containers
-(codec/tiled.py), and the batched grid decode.
+modular streams (codec/lossless.py), including uniform lossless grid rows,
+and JXTS striped containers (codec/tiled.py).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from jxl_tpu_torch.codec.encode import ac_step_ctx, bucket_perm
 from jxl_tpu_torch.codec.layout import NNZ_Q, padded_layout, token_layout
 from jxl_tpu_torch.core.device import resolve_device
 from jxl_tpu_torch.core.xyb import xyb_to_srgb
-from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
+from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 from jxl_tpu_torch.entropy.grouped import GROUP, kernel_rows
 from jxl_tpu_torch.entropy.rans import exclusive_cumsum
 from jxl_tpu_torch.entropy.tokens import zigzag_unmap
@@ -219,56 +224,100 @@ def _reconstruct(
     return torch.round(srgb * 255.0).to(torch.uint8)
 
 
-def _stream_buffers(stream: JxtStream, device):
-    """(words_g [G, capw], mant_g [G, capm]) int32 on `device`: each group's
-    segment at the front of its row, zero tail; caps are the largest
-    group's counts."""
-    h = stream.header
-    G = h.lanes // GROUP
+def _stream_buffers(stream: JxtStream, capw: int, capm: int):
+    """(words [G, capw], mant [G, capm]) int32 numpy: each group's segment
+    at the front of its row, zero tail (caps >= the largest group's
+    counts)."""
+    G = stream.header.lanes // GROUP
     words = np.frombuffer(stream.stream_words, dtype="<u2")
     mant = np.frombuffer(stream.mant_bytes, dtype=np.uint8)
     wc = stream.wcounts.astype(np.int64)
     mc = stream.mcounts.astype(np.int64)
-    wg = np.zeros((G, max(1, int(wc.max()))), np.int32)
-    mg = np.zeros((G, max(1, int(mc.max()))), np.int32)
+    wg = np.zeros((G, capw), np.int32)
+    mg = np.zeros((G, capm), np.int32)
     wb = np.concatenate([[0], np.cumsum(wc)])
     mb = np.concatenate([[0], np.cumsum(mc)])
     for g in range(G):
         wg[g, : wc[g]] = words[wb[g] : wb[g + 1]]
         mg[g, : mc[g]] = mant[mb[g] : mb[g + 1]]
-    return torch.from_numpy(wg).to(device), torch.from_numpy(mg).to(device)
+    return wg, mg
+
+
+def _lossy_only(stream: JxtStream):
+    if stream.header.lossless:
+        raise NotImplementedError(
+            "lossless / modular streams (codec/lossless.py) are not ported to jxl_tpu_torch yet"
+        )
+
+
+def _scan_one(words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int):
+    """Kernel B1 in the batched calling convention, for one stream."""
+    v, st, p = decode_grouped_cuda(words_g, mant_g, states[0], rows[:, 0], ptrs, T=T, lanes=lanes)
+    return v[None], st[None], p
+
+
+def _padded_values(streams, dev: torch.device, scan) -> torch.Tensor:
+    """Both rANS phases of same-geometry lossy streams -> padded value
+    streams [B, n_padded] int32 on `dev`.
+
+    `scan` runs one phase for all streams with decode_grouped_batched's
+    arguments: `_scan_one` (kernel B1) for a single stream,
+    `decode_grouped_batched_cuda` (kernel B2, one launch per phase) for a
+    row. The word and mantissa buckets of all streams go up in one upload
+    each, with caps equal to the largest counts across the row."""
+    h = streams[0].header
+    lanes = h.lanes
+    G = lanes // GROUP
+    B = len(streams)
+    lay = padded_layout(h.height, h.width, lanes)
+    t_a, T = lay["t_a"], lay["T"]
+    capw = max(1, max(int(s.wcounts.max()) for s in streams))
+    capm = max(1, max(int(s.mcounts.max()) for s in streams))
+    bufs = [_stream_buffers(s, capw, capm) for s in streams]
+    words_g = torch.from_numpy(np.concatenate([b[0] for b in bufs])).to(dev)
+    mant_g = torch.from_numpy(np.concatenate([b[1] for b in bufs])).to(dev)
+    states = torch.from_numpy(np.stack([np.asarray(s.states, np.int64) for s in streams])).to(dev)
+    freqs = [torch.from_numpy(np.asarray(s.freq, np.int64)).to(dev).to(torch.int32) for s in streams]
+    cums = [exclusive_cumsum(f, dim=1) for f in freqs]
+    ptrs = torch.zeros((2, B * G), dtype=torch.int32, device=dev)
+
+    step_ctx_a = torch.from_numpy(lay["step_ctx"][:t_a]).to(dev)
+    rows_a = torch.stack([kernel_rows(step_ctx_a, f, c) for f, c in zip(freqs, cums)], dim=1)
+    vals_a, st, ptrs = scan(words_g, mant_g, states, rows_a, ptrs, T=t_a, lanes=lanes)
+    rows_b = []
+    for i, s in enumerate(streams):
+        _qf, q_sorted = _nnz_map_from_padded(vals_a[i], s.header.decode_params, lay)
+        rows_b.append(kernel_rows(ac_step_ctx(lay, q_sorted), freqs[i], cums[i]))
+    vals_b, _st, _ptrs = scan(words_g, mant_g, st, torch.stack(rows_b, dim=1), ptrs, T=T - t_a, lanes=lanes)
+    return torch.cat([vals_a, vals_b], dim=1)
+
+
+def _unpad(values_p: torch.Tensor, lay) -> torch.Tensor:
+    """[..., n_padded] -> [..., n_tokens]: drop the K-padding of each span."""
+    return torch.cat([values_p[..., dst : dst + n_real] for _c, dst, n_real, _p in lay["spans"]], dim=-1)
 
 
 def decode_values(stream: JxtStream, device) -> torch.Tensor:
     """The decoded value stream [n_tokens] int32 (K-padding removed) of a
-    lossy container: both rANS phases, on `device`."""
+    lossy container: both rANS phases (kernel B1), on `device`."""
     dev = resolve_device(device)
+    _lossy_only(stream)
     h = stream.header
-    if h.lossless:
-        raise NotImplementedError(
-            "lossless / modular streams (codec/lossless.py) are not ported to jxl_tpu_torch yet"
-        )
-    lanes = h.lanes
-    G = lanes // GROUP
-    lay = padded_layout(h.height, h.width, lanes)
-    t_a, T = lay["t_a"], lay["T"]
-    freq = torch.from_numpy(np.asarray(stream.freq, np.int64)).to(dev).to(torch.int32)
-    cum = exclusive_cumsum(freq, dim=1)
-    words_g, mant_g = _stream_buffers(stream, dev)
-    states = torch.from_numpy(np.asarray(stream.states, np.int64)).to(dev)
-    ptrs = torch.zeros((2, G), dtype=torch.int32, device=dev)
+    values_p = _padded_values([stream], dev, _scan_one)[0]
+    return _unpad(values_p, padded_layout(h.height, h.width, h.lanes))
 
-    step_ctx_a = torch.from_numpy(lay["step_ctx"][:t_a]).to(dev)
-    vals_a, st, ptrs = decode_grouped_cuda(
-        words_g, mant_g, states, kernel_rows(step_ctx_a, freq, cum), ptrs, T=t_a, lanes=lanes
-    )
-    _qf, q_sorted = _nnz_map_from_padded(vals_a, h.decode_params, lay)
-    rows_b = kernel_rows(ac_step_ctx(lay, q_sorted), freq, cum)
-    vals_b, _st, _ptrs = decode_grouped_cuda(
-        words_g, mant_g, st, rows_b, ptrs, T=T - t_a, lanes=lanes
-    )
-    values_p = torch.cat([vals_a, vals_b])
-    return torch.cat([values_p[dst : dst + n_real] for _c, dst, n_real, _p in lay["spans"]])
+
+def decode_values_grid(streams, device) -> torch.Tensor:
+    """The decoded value streams [N, n_tokens] int32 of a uniform row of
+    lossy containers (same height, width and lanes): both rANS phases for
+    the whole row in one kernel-B2 launch each, on `device`."""
+    dev = resolve_device(device)
+    for s in streams:
+        _lossy_only(s)
+    if not _same_geometry(streams):
+        raise ValueError("decode_values_grid takes streams of one height, width and lane count")
+    h = streams[0].header
+    return _unpad(_padded_values(streams, dev, decode_grouped_batched_cuda), padded_layout(h.height, h.width, h.lanes))
 
 
 def decode_stream_device(stream: JxtStream, *, device) -> torch.Tensor:
@@ -302,7 +351,57 @@ def decode_bytes(data: bytes, *, device) -> np.ndarray:
     return decode_stream(_read(data), device=device)
 
 
-def decode_bytes_grid_stacked(datas, *, device):
-    raise NotImplementedError(
-        "batched grid decode (and its kernel, the batched decode scan) is not ported to jxl_tpu_torch yet"
+def _same_geometry(streams) -> bool:
+    """Every stream has the first's height, width, lane count and coding
+    family."""
+    h0 = streams[0].header
+    return all(
+        (s.header.height, s.header.width, s.header.lanes, s.header.lossless)
+        == (h0.height, h0.width, h0.lanes, h0.lossless)
+        for s in streams
     )
+
+
+def _uniform_row(streams) -> bool:
+    """Whether a row decodes as one batch: more than one stream, all of one
+    geometry, and no palette stream (those need a per-stream palette
+    gather). EPF may differ per point: each stream's decode-params bit
+    governs it."""
+    return (
+        len(streams) > 1
+        and _same_geometry(streams)
+        and not any(s.header.lossless and len(s.acs_extra) >= 3 for s in streams)
+    )
+
+
+def decode_bytes_grid_stacked(datas, *, device):
+    """Decode a grid row (container bytes of same-geometry streams, such as
+    one image's RD-sweep points) to an RGB u8 [N, H, W, 3] tensor on
+    `device`: both rANS phases in one kernel-B2 launch each for the whole
+    row, then reconstruction stream by stream.
+
+    Returns None when the row is a single stream or is not uniform
+    (geometry, lanes, coding family or palette differ): callers decode
+    those per stream. A uniform lossless / modular row raises
+    NotImplementedError (codec/lossless.py is not ported yet)."""
+    streams = [_read(b) for b in datas]
+    if not _uniform_row(streams):
+        return None
+    values = decode_values_grid(streams, device)
+    h0 = streams[0].header
+    return torch.stack(
+        [
+            _reconstruct(values[i], s.header.distance, s.header.decode_params, height=h0.height, width=h0.width)
+            for i, s in enumerate(streams)
+        ]
+    )
+
+
+def decode_bytes_grid_device(datas, *, device) -> list:
+    """List view of decode_bytes_grid_stacked: [H, W, 3] u8 tensors on
+    `device`, one per stream; a row that is not uniform decodes stream by
+    stream."""
+    out = decode_bytes_grid_stacked(datas, device=device)
+    if out is None:
+        return [decode_bytes_device(b, device=device) for b in datas]
+    return list(out.unbind(0))

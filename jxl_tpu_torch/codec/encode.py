@@ -9,16 +9,24 @@
 
 All per-pixel and per-symbol work runs as torch ops on the given device;
 the rANS encode is the CUDA kernel of `entropy/cuda_rans_enc.py` on a GPU.
-`encode_image` takes an explicit `device`; `resolve_device` turns TF32 off
-there on CUDA (the DCTs and the k-means cost matrix stay full float32).
-The kernel's buckets go straight to container bytes: one device-to-host
-copy each of the counts, words, mantissa bytes, states and tables.
+Every entry point takes an explicit `device`; `resolve_device` turns TF32
+off there on CUDA (the DCTs and the k-means cost matrix stay full
+float32). The kernel's buckets go straight to container bytes: one
+device-to-host copy each of the counts, words, mantissa bytes, states and
+tables.
 
-Covered: lossy VarDCT, efforts 1-7, BASELINE strategy. Not ported yet,
-and raising NotImplementedError: d = 0 lossless, modular-lossy and
-palette modes (including the modular candidate an image with flat
-synthetic content gets when `config.modular`), efforts 8-9, the
-homogeneity strategies, grid and batched encodes.
+Entry points: `encode_image` (one image), `encode_image_grid[_async]`
+(one image over an RD-sweep row of distances), `encode_images_batched_async`
+(same-geometry images) and `encode_images` (a list of jobs). Every point of
+a grid or batch runs the same per-image encode as `encode_image`, one
+encode-kernel launch each, so its container is byte-identical to
+`encode_image`'s.
+
+Covered: lossy VarDCT, efforts 1-7, every strategy (BASELINE and the
+thesis's homogeneity hooks). Not ported yet, and raising
+NotImplementedError: d = 0 lossless, modular-lossy and palette modes
+(including the modular candidate an image with flat synthetic content gets
+when `config.modular`), efforts 8-9.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jxl_tpu_torch.codec.config import CodecConfig, Strategy
+from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import MAX_PIXELS, JxtHeader, JxtStream, write_container
 from jxl_tpu_torch.codec.layout import CTX_AC_BASE, NNZ_EDGES, NNZ_Q, padded_layout, token_layout
 from jxl_tpu_torch.core.device import resolve_device
@@ -66,6 +74,7 @@ class EncoderKnobs:
     nnz_force   pin the nnz-conditioning decision (None = measured)
     epf_force   pin the adaptive-EPF decision (None = measured)
     modular     modular-candidate mode: 0 off, 1 auto, 2 force
+    hooka_eps   near-tie margin of the RD-gated hook A (HOMOGENEITY_RD_GATED)
     """
 
     deadzone: float = 0.12
@@ -74,6 +83,7 @@ class EncoderKnobs:
     nnz_force: bool | None = None
     epf_force: bool | None = None
     modular: int = 1
+    hooka_eps: float = 0.02
 
 
 def encoder_knobs() -> EncoderKnobs:
@@ -86,6 +96,7 @@ def encoder_knobs() -> EncoderKnobs:
         nnz_force=_env_force("JXL_TPU_NNZ_FORCE"),
         epf_force=_env_force("JXL_TPU_EPF_FORCE"),
         modular=1 if mod is None or mod == "" else int(mod),
+        hooka_eps=float(os.environ.get("JXL_TPU_HOOKA_EPS", "0.02")),
     )
 
 
@@ -191,10 +202,15 @@ def _small_hist_bits(v: torch.Tensor, levels: int) -> torch.Tensor:
 
 def tokens_from_rgb(
     rgb: torch.Tensor, distance: float, *, height: int, width: int, effort: int = 7,
-    knobs: EncoderKnobs | None = None,
+    hook_a: int = 0, hook_b: bool = False, knobs: EncoderKnobs | None = None,
 ):
     """Pixels (u8 [H, W, 3] tensor) -> (token, nbits, mantissa [n_tokens]
     int32, params int, q_sorted [3, nb], values [n_tokens] int32).
+
+    hook_a / hook_b: the strategy's homogeneity hooks (`Strategy.hook_a`,
+    `Strategy.hook_b`; see strategy.acs.search_acs). The encode reads a few
+    decisions back to the host (DC mode, map prediction, nnz and EPF bits),
+    so it synchronises with the device.
 
     params: bits 0-1 DC predictor, 2-4 causal ACS / QF / nnz map
     prediction, 5 the adaptive-EPF decision (the container's mode field).
@@ -221,7 +237,10 @@ def tokens_from_rgb(
         qf_idx = torch.full((nby, nbx), QF_CENTER_IDX, dtype=torch.int64, device=dev)
     qf_mul = qf_multiplier(qf_idx)
 
-    acs, raw, qsteps = search_acs(blocks, planes_p, distance, effort=effort, qf_mul=qf_mul)
+    acs, raw, qsteps = search_acs(
+        blocks, planes_p, distance, effort=effort, qf_mul=qf_mul,
+        hook_a=hook_a, hook_b=hook_b, hooka_eps=knobs.hooka_eps,
+    )
 
     def quant(v, steps):
         if effort >= 5:
@@ -380,23 +399,28 @@ def entropy_inputs(token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tens
     return tokp, mantp, rows, freq
 
 
-def _entropy_and_pack(token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tensor, lay, lanes: int):
-    """Entropy-code the token stream with the rANS encode kernel and bring
-    the container pieces to the host.
-
-    Returns (freq [n_ctx, A] u32, states [lanes] u32, words bytes (u16 LE),
-    mantissa bytes, wcounts [G] u32, mcounts [G] u32)."""
+def _entropy_encode(token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tensor, lay, lanes: int):
+    """Entropy-code the token stream with the rANS encode kernel, leaving
+    the results on the device: (freq [n_ctx, A], words [G, capw], mbytes
+    [G, capm] back-filled buckets, states [lanes], wcounts [G], mcounts
+    [G])."""
     T = lay["T"]
     tokp, mantp, rows, freq = entropy_inputs(token, mant, step_ctx, lay, lanes)
     capw, capm = enc_caps(T, lanes)
     words, mbytes, states, wcounts, mcounts = encode_grouped_cuda(
         tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm
     )
+    return freq, words, mbytes, states, wcounts, mcounts
+
+
+def _to_host(freq, words, mbytes, states, wcounts, mcounts):
+    """Bring `_entropy_encode`'s results to the host as container pieces:
+    (freq [n_ctx, A] u32, states [lanes] u32, words bytes (u16 LE),
+    mantissa bytes, wcounts [G] u32, mcounts [G] u32)."""
     wc, mc = torch.stack([wcounts, mcounts]).cpu().numpy().astype(np.int64)
-    G = lanes // GROUP
     cw, cm = words.shape[1], mbytes.shape[1]
-    words_used = torch.cat([words[g, cw - wc[g] :] for g in range(G)]).cpu().numpy()
-    mant_used = torch.cat([mbytes[g, cm - mc[g] :] for g in range(G)]).cpu().numpy()
+    words_used = torch.cat([words[g, cw - wc[g] :] for g in range(len(wc))]).cpu().numpy()
+    mant_used = torch.cat([mbytes[g, cm - mc[g] :] for g in range(len(mc))]).cpu().numpy()
     return (
         freq.cpu().numpy().astype(np.uint32),
         states.cpu().numpy().astype(np.uint32),
@@ -474,6 +498,57 @@ def _modular_candidate(rgb: np.ndarray, mode: int) -> bool:
     return float(np.mean(eqw[1:, :] & eqn[:, 1:])) >= 0.12
 
 
+def _check_lossy(h: int, w: int, config: CodecConfig):
+    """Raise for what the lossy VarDCT encode of the port does not cover."""
+    if h * w > MAX_PIXELS:
+        raise ValueError(
+            f"{h}x{w} exceeds the {MAX_PIXELS}-pixel single-section cap "
+            "(the JXTS striped format is not ported to jxl_tpu_torch yet)"
+        )
+    if config.effort >= 8:
+        raise NotImplementedError("efforts 8-9 (measured-rate two-pass search, 128/256 merges) are not ported yet")
+
+
+def _refuse_modular_candidate(rgb, config: CodecConfig, knobs: EncoderKnobs):
+    if config.modular and _modular_candidate(rgb, knobs.modular):
+        raise NotImplementedError(
+            "this image is a modular-mode candidate; the modular-lossy encode and the "
+            "VarDCT-vs-modular pick are not ported yet (pass CodecConfig(modular=False))"
+        )
+
+
+def _encode_points_async(rgbs, config: CodecConfig, distances, orig_names, knobs: EncoderKnobs):
+    """Encode same-geometry (image tensor, distance, name) points: the
+    device work of every point runs now (the per-image encode, one
+    encode-kernel launch each); finalize() brings each point's buckets to
+    the host and returns its container bytes, in order. Distances are
+    floored at 0.05."""
+    h, w = int(rgbs[0].shape[0]), int(rgbs[0].shape[1])
+    lanes = pick_lanes(token_layout(h, w)["n_tokens"], config.lanes)
+    lay = padded_layout(h, w, lanes)
+    pending = []
+    for rgb_t, d, name in zip(rgbs, distances, orig_names):
+        cfg_d = replace(config, distance=max(float(d), 0.05))
+        token, _nbits, mant, params, q_sorted, _values = tokens_from_rgb(
+            rgb_t, cfg_d.distance, height=h, width=w, effort=int(config.effort),
+            hook_a=config.strategy.hook_a, hook_b=config.strategy.hook_b, knobs=knobs,
+        )
+        enc = _entropy_encode(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
+        pending.append((cfg_d, name, params, enc))
+
+    def finalize() -> list:
+        return [
+            _assemble_container(h, w, cfg_d, name, lanes, lay, *_to_host(*enc), params=params)
+            for cfg_d, name, params, enc in pending
+        ]
+
+    return finalize
+
+
+def _upload(rgb, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)).to(dev)
+
+
 def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device) -> bytes:
     """Encode an RGB u8 [H, W, 3] image to JXT bytes, computing on `device`.
 
@@ -481,39 +556,63 @@ def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, d
     NotImplementedError for what the port does not cover yet (see the
     module docstring) rather than coding it another way."""
     h, w = int(rgb.shape[0]), int(rgb.shape[1])
-    if h * w > MAX_PIXELS:
-        raise ValueError(
-            f"{h}x{w} exceeds the {MAX_PIXELS}-pixel single-section cap "
-            "(the JXTS striped format is not ported to jxl_tpu_torch yet)"
-        )
+    _check_lossy(h, w, config)
     if config.distance <= 0.0:
         raise NotImplementedError("d = 0 lossless / palette modes (codec/lossless.py) are not ported yet")
-    if config.effort >= 8:
-        raise NotImplementedError("efforts 8-9 (measured-rate two-pass search, 128/256 merges) are not ported yet")
-    if config.strategy is not Strategy.BASELINE:
-        raise NotImplementedError(f"strategy {config.strategy.name} (strategy/homogeneity.py) is not ported yet")
     knobs = encoder_knobs()
-    if config.modular and _modular_candidate(rgb, knobs.modular):
-        raise NotImplementedError(
-            "this image is a modular-mode candidate; the modular-lossy encode and the "
-            "VarDCT-vs-modular pick are not ported yet (pass CodecConfig(modular=False))"
-        )
-    if config.distance < 0.05:
-        config = replace(config, distance=0.05)
+    _refuse_modular_candidate(rgb, config, knobs)
     dev = resolve_device(device)
-    lanes = pick_lanes(token_layout(h, w)["n_tokens"], config.lanes)
-    lay = padded_layout(h, w, lanes)
-    rgb_t = torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)).to(dev)
-    token, _nbits, mant, params, q_sorted, _values = tokens_from_rgb(
-        rgb_t, config.distance, height=h, width=w, effort=int(config.effort), knobs=knobs
-    )
-    pieces = _entropy_and_pack(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
-    return _assemble_container(h, w, config, orig_name, lanes, lay, *pieces, params=params)
+    return _encode_points_async([_upload(rgb, dev)], config, [config.distance], [orig_name], knobs)()[0]
 
 
-def encode_image_grid(rgb, config: CodecConfig, distances, orig_name: str = "", *, device):
-    raise NotImplementedError("grid encode (one program over an RD row) is not ported to jxl_tpu_torch yet")
+def encode_image_grid_async(rgb: np.ndarray, config: CodecConfig, distances, orig_name: str = "", *, device):
+    """Encode one image at every distance of an RD-sweep row; returns
+    finalize() -> list of container bytes (one per distance, same order),
+    each byte-identical to `encode_image` at that distance.
+
+    Distances are floored at 0.05, so a d = 0 point is lossy here. The
+    device work runs before this returns; the port's encode synchronises
+    with the host inside `tokens_from_rgb`, so only the last copies to the
+    host and the container assembly are left to finalize()."""
+    h, w = int(rgb.shape[0]), int(rgb.shape[1])
+    _check_lossy(h, w, config)
+    knobs = encoder_knobs()
+    _refuse_modular_candidate(rgb, config, knobs)
+    dev = resolve_device(device)
+    rgb_t = _upload(rgb, dev)
+    n = len(distances)
+    return _encode_points_async([rgb_t] * n, config, distances, [orig_name] * n, knobs)
 
 
-def encode_images(jobs, *, device):
-    raise NotImplementedError("batched multi-image encode is not ported to jxl_tpu_torch yet")
+def encode_image_grid(rgb: np.ndarray, config: CodecConfig, distances, orig_name: str = "", *, device) -> list:
+    """Synchronous form of encode_image_grid_async."""
+    return encode_image_grid_async(rgb, config, distances, orig_name, device=device)()
+
+
+def encode_images_batched_async(rgbs, config: CodecConfig, distances=None, orig_names=None, *, device):
+    """Encode a batch of same-geometry images (lossy only); returns
+    finalize() -> list of container bytes, each byte-identical to
+    `encode_image` of that image at its distance (default
+    `config.distance`). Raises ValueError on a distance <= 0. As in
+    encode_image_grid_async, the device work runs before this returns."""
+    batch = [np.asarray(r) for r in rgbs]
+    h, w = int(batch[0].shape[0]), int(batch[0].shape[1])
+    if any(r.shape != batch[0].shape for r in batch):
+        raise ValueError("encode_images_batched_async takes images of one geometry")
+    if distances is None:
+        distances = [config.distance] * len(batch)
+    if any(float(d) <= 0.0 for d in distances):
+        raise ValueError(
+            "encode_images_batched_async is the lossy batch path; d = 0 images go through encode_image"
+        )
+    if orig_names is None:
+        orig_names = [""] * len(batch)
+    _check_lossy(h, w, config)
+    dev = resolve_device(device)
+    return _encode_points_async([_upload(r, dev) for r in batch], config, distances, orig_names, encoder_knobs())
+
+
+def encode_images(jobs, *, device) -> list:
+    """Encode [(rgb, config[, orig_name]), ...] one by one; returns the
+    container bytes in order."""
+    return [encode_image(*job, device=device) for job in jobs]

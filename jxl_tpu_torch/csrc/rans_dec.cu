@@ -1,34 +1,42 @@
-// Grouped, interleaved rANS decode scan for Hopper (sm_90a).
+// Grouped, interleaved rANS decode scan for Hopper (sm_90a), over one
+// stream or a batch of same-geometry streams.
 //
-// Replaces the Pallas TPU kernel `decode_grouped_pallas`
-// (jxl_tpu/entropy/pallas_rans.py, kernel body `_make_kernel`). Plain
-// version: jxl_tpu_torch/entropy/grouped.py:decode_grouped, bit for bit.
+// Replaces the Pallas TPU kernels `decode_grouped_pallas` (B1) and
+// `decode_grouped_pallas_batched` (B2) (jxl_tpu/entropy/pallas_rans.py,
+// kernel body `_make_kernel(G, B)`). Plain versions:
+// jxl_tpu_torch/entropy/grouped.py:decode_grouped and
+// decode_grouped_batched, bit for bit.
 //
-// One CTA of 128 threads per 128-lane group; thread i owns rANS lane
-// g * 128 + i and keeps its 32-bit state in a register while it walks the
-// T scan steps. Per step:
-//   1. the step's (freq | cum) row is staged in shared memory and a
-//      6-probe binary search finds the largest k with cum[k] <= slot;
+// One CTA of 128 threads per (stream b, 128-lane group g); thread i owns
+// rANS lane g * 128 + i of stream b and keeps its 32-bit state in a
+// register while it walks the T scan steps. Per step:
+//   1. stream b's (freq | cum) row for the step is staged in shared memory
+//      and a 6-probe binary search finds the largest k with cum[k] <= slot;
 //   2. x = f * (x >> 12) + slot - cum[k];
 //   3. lanes with x < 2^16 renormalise with one u16 word, taken in
 //      intra-group rank order (ballot/popc inside each warp plus a 4-warp
 //      exclusive prefix in shared memory);
 //   4. symbols >= 32 read 1-3 mantissa bytes, ranked the same way (warp
 //      shuffle scan of the byte counts);
-//   5. the detokenised value is stored.
+//   5. the detokenised value is stored straight at its place in stream b's
+//      value row (no transpose pass afterwards).
 // The group's word and byte stream pointers are uniform across the CTA and
 // live in registers; the final states and pointers are the carry of the
 // two-phase decode. Reads past a bucket's end read 0.
 //
 // What bounds it: the scan is a chain of T dependent steps, each a few
-// shared-memory round trips and two __syncthreads. At the bench size only
-// G = 2 CTAs run (lanes = 256), so the card is latency-bound with most SMs
+// shared-memory round trips and two __syncthreads. One stream at the bench
+// size is G = 2 CTAs (lanes = 256): the card is latency-bound with most SMs
 // idle, not bandwidth-bound (~20 MB moved in total). The design shortens
 // the chain: the next step's row and this step's word/byte windows (the
 // 128 words and 384 bytes at the stream pointers) are loaded before the
-// symbol search, so no device-memory load sits between two barriers.
-// Filling the card (many images per launch, the batched variant) is later
-// work.
+// symbol search, so no device-memory load sits between two barriers. The
+// batch fills the card instead of lengthening the chain: B streams are
+// B * G independent CTAs of ~4.6 KB shared memory each, one wave up to
+// B * G = 132 x (CTAs per SM), so a batch should take about one stream's
+// time. The TPU kernel's limits (8 state-tile rows, a VMEM budget, aligned
+// windows with read-ahead slack, T padded to a multiple of 8) have no
+// counterpart here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,9 +65,14 @@ __global__ void __launch_bounds__(GROUP) rans_decode_kernel(
     const int32_t* __restrict__ mant, int capm,
     const int32_t* __restrict__ rows, int T,
     const uint32_t* __restrict__ states_in, const int32_t* __restrict__ ptrs_in,
-    int G, int32_t* __restrict__ values, uint32_t* __restrict__ states_out,
+    int G, int B, int32_t* __restrict__ values, uint32_t* __restrict__ states_out,
     int32_t* __restrict__ ptrs_out) {
-  const int g = blockIdx.x;
+  // block n = b * G + g: group g of stream b; its words, bytes, states and
+  // pointers are row n of the stacked [B * G, ...] buffers
+  const int n = blockIdx.x;
+  const int b = n / G;
+  const int g = n - b * G;
+  const int NG = B * G;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -74,13 +87,17 @@ __global__ void __launch_bounds__(GROUP) rans_decode_kernel(
   __shared__ int wsum[WARPS];
   __shared__ int bsum[WARPS];
 
-  const int32_t* wg = words + (size_t)g * capw;
-  const int32_t* mg = mant + (size_t)g * capm;
-  uint32_t x = states_in[(size_t)g * GROUP + tid];
-  int gptr = ptrs_in[g];
-  int bptr = ptrs_in[G + g];
+  const int32_t* wg = words + (size_t)n * capw;
+  const int32_t* mg = mant + (size_t)n * capm;
+  // rows [T, B, 128]: step t of stream b at (t * B + b) * 128
+  const int32_t* rb = rows + (size_t)b * GROUP + tid;
+  const size_t row_stride = (size_t)B * GROUP;
+  int32_t* vb = values + (size_t)b * T * lanes + (size_t)g * GROUP + tid;
+  uint32_t x = states_in[(size_t)n * GROUP + tid];
+  int gptr = ptrs_in[n];
+  int bptr = ptrs_in[NG + n];
 
-  int32_t next_row = T > 0 ? rows[tid] : 0;
+  int32_t next_row = T > 0 ? rb[0] : 0;
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;
     row[tid] = next_row;
@@ -93,7 +110,7 @@ __global__ void __launch_bounds__(GROUP) rans_decode_kernel(
         mwin[buf][k * GROUP + tid] = (j >= 0 && j < capm) ? mg[j] : 0;
       }
     }
-    if (t + 1 < T) next_row = rows[(size_t)(t + 1) * GROUP + tid];
+    if (t + 1 < T) next_row = rb[(size_t)(t + 1) * row_stride];
     __syncthreads();
 
     const int slot = (int)(x & SLOT_MASK);
@@ -143,27 +160,48 @@ __global__ void __launch_bounds__(GROUP) rans_decode_kernel(
     bptr += btot;
 
     const uint32_t value = sym >= 32 ? (1u << nbits) + mval : (uint32_t)sym;
-    values[(size_t)t * lanes + (size_t)g * GROUP + tid] = (int32_t)value;
+    vb[(size_t)t * lanes] = (int32_t)value;
   }
 
-  states_out[(size_t)g * GROUP + tid] = x;
+  states_out[(size_t)n * GROUP + tid] = x;
   if (tid == 0) {
-    ptrs_out[g] = gptr;
-    ptrs_out[G + g] = bptr;
+    ptrs_out[n] = gptr;
+    ptrs_out[NG + n] = bptr;
   }
+}
+
+int launch(const void* words, int capw, const void* mant, int capm, const void* rows, int T,
+           const void* states_in, const void* ptrs_in, int G, int B, void* values,
+           void* states_out, void* ptrs_out, void* stream) {
+  rans_decode_kernel<<<B * G, GROUP, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, capw, (const int32_t*)mant, capm, (const int32_t*)rows, T,
+      (const uint32_t*)states_in, (const int32_t*)ptrs_in, G, B, (int32_t*)values,
+      (uint32_t*)states_out, (int32_t*)ptrs_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point bound with ctypes. Launches on `stream` and returns
+// C entry points bound with ctypes. Each launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
+
+// B1: one stream. words [G, capw], states [G * 128], rows [T, 128],
+// ptrs [2, G], values [T * G * 128].
 extern "C" int jxl_rans_decode(const void* words, int capw, const void* mant, int capm,
                                const void* rows, int T, const void* states_in,
                                const void* ptrs_in, int G, void* values,
                                void* states_out, void* ptrs_out, void* stream) {
-  rans_decode_kernel<<<G, GROUP, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)words, capw, (const int32_t*)mant, capm, (const int32_t*)rows, T,
-      (const uint32_t*)states_in, (const int32_t*)ptrs_in, G, (int32_t*)values,
-      (uint32_t*)states_out, (int32_t*)ptrs_out);
-  return (int)cudaGetLastError();
+  return launch(words, capw, mant, capm, rows, T, states_in, ptrs_in, G, 1, values,
+                states_out, ptrs_out, stream);
+}
+
+// B2: B streams. words [B * G, capw], states [B, G * 128], rows [T, B, 128],
+// ptrs [2, B * G], values [B, T * G * 128].
+extern "C" int jxl_rans_decode_batched(const void* words, int capw, const void* mant,
+                                       int capm, const void* rows, int T,
+                                       const void* states_in, const void* ptrs_in, int G,
+                                       int B, void* values, void* states_out,
+                                       void* ptrs_out, void* stream) {
+  return launch(words, capw, mant, capm, rows, T, states_in, ptrs_in, G, B, values,
+                states_out, ptrs_out, stream);
 }

@@ -21,6 +21,9 @@ Tensor conventions (shared with the kernels):
   words   [G, capw] int32 u16 values;  mbytes [G, capm] int32 byte values
   states  [lanes] int64 in [0, 2^32)
   ptrs    [2, G] int32 word / mantissa-byte stream pointers (decode carry)
+The batched decode (`decode_grouped_batched`) stacks B streams along the
+group axis (words [B*G, capw], ptrs [2, B*G]) and gives each its own rows
+(rows [>= T, B, 128], states [B, lanes]).
 """
 
 from __future__ import annotations
@@ -142,19 +145,50 @@ def decode_grouped(
     of a previous phase). Reads past a bucket's end read 0.
 
     Returns (values [T*lanes] int32 detokenised values, final states
-    [lanes] int64, final ptrs [2, G] int32) — the two-phase carry."""
+    [lanes] int64, final ptrs [2, G] int32) — the two-phase carry. The
+    one-stream case of `decode_grouped_batched`."""
+    vals, st, ptrs_out = decode_grouped_batched(
+        words_g, mant_g, states.reshape(1, lanes), rows[:T, None], ptrs, T=T, lanes=lanes
+    )
+    return vals.reshape(T * lanes), st.reshape(lanes), ptrs_out
+
+
+def decode_grouped_batched(
+    words_g: torch.Tensor,
+    mant_g: torch.Tensor,
+    states: torch.Tensor,
+    rows: torch.Tensor,
+    ptrs: torch.Tensor,
+    *,
+    T: int,
+    lanes: int,
+):
+    """`decode_grouped` over B same-geometry streams at once.
+
+    words_g [B*G, capw] and mant_g [B*G, capm] (stream b's groups are rows
+    b*G .. b*G + G - 1; the caps are shared), states [B, lanes] int64, rows
+    [>= T, B, 128] int32 (each stream steps through its own tables), ptrs
+    [2, B*G] int32. All B*G groups advance together, one step at a time;
+    group b*G + g reads row rows[t, b].
+
+    Returns (values [B, T*lanes] int32, final states [B, lanes] int64,
+    final ptrs [2, B*G] int32)."""
     G = n_groups(lanes)
+    B = states.shape[0]
+    NG = B * G
     dev = words_g.device
     capw, capm = words_g.shape[1], mant_g.shape[1]
     wflat = words_g.reshape(-1).to(torch.int64)
     mflat = mant_g.reshape(-1).to(torch.int64)
-    wbase = torch.arange(G, device=dev)[:, None] * capw
-    mbase = torch.arange(G, device=dev)[:, None] * capm
-    x = states.to(torch.int64).reshape(G, GROUP)
+    wbase = torch.arange(NG, device=dev)[:, None] * capw
+    mbase = torch.arange(NG, device=dev)[:, None] * capm
+    # flat offset of each group's row within a step's [B, 128] rows
+    rbase = (torch.arange(NG, device=dev)[:, None] // G) * GROUP
+    x = states.to(torch.int64).reshape(NG, GROUP)
     gptr = ptrs[0].to(torch.int64)
     bptr = ptrs[1].to(torch.int64)
-    r = rows[:T].to(torch.int64)
-    vals = torch.empty((T, G, GROUP), dtype=torch.int64, device=dev)
+    r = rows[:T].to(torch.int64).reshape(T, B * GROUP)
+    vals = torch.empty((T, NG, GROUP), dtype=torch.int64, device=dev)
     for t in range(T):
         row = r[t]
         slot = x & (RANS_M - 1)
@@ -162,9 +196,9 @@ def decode_grouped(
         lo = torch.zeros_like(x)
         for p in (32, 16, 8, 4, 2, 1):
             cand = lo + p
-            lo = torch.where(row[cand + 64] <= slot, cand, lo)
-        f = row[lo]
-        x_dec = (f * (x >> RANS_PRECISION) + slot - row[lo + 64]) & _U32
+            lo = torch.where(row[rbase + cand + 64] <= slot, cand, lo)
+        f = row[rbase + lo]
+        x_dec = (f * (x >> RANS_PRECISION) + slot - row[rbase + lo + 64]) & _U32
         need = (x_dec < RANS_L).to(torch.int64)
         idx = gptr[:, None] + exclusive_cumsum(need, dim=1)
         ok = (need == 1) & (idx >= 0) & (idx < capw)
@@ -182,5 +216,6 @@ def decode_grouped(
             mval = mval | (torch.where(ok, mflat[mbase + i.clamp(0, capm - 1)], 0) << (8 * j))
         bptr = bptr + nbyt.sum(dim=1)
         vals[t] = torch.where(lo >= 32, (1 << nbits) + mval, lo)
+    values = vals.reshape(T, B, lanes).transpose(0, 1).reshape(B, T * lanes)
     ptrs_out = torch.stack([gptr, bptr]).to(torch.int32)
-    return vals.reshape(T * lanes).to(torch.int32), x.reshape(lanes), ptrs_out
+    return values.to(torch.int32), x.reshape(B, lanes), ptrs_out

@@ -8,10 +8,11 @@ storage layout of each strategy (ids 0-3 sub-8 transforms in one 8x8
 block, 4-8 the 16..256 merges in the strided coefficient mapping).
 
 Ported here: the decoder's pieces for every strategy id (`steps_field`,
-`effective_multiplier`, `reassemble_merged`), and the encoder's search for
-the BASELINE strategy with the proxy rate model (efforts up to 7: the
-sub-8 search and the 16/32/64 merge rungs). The homogeneity hooks and the
-measured-rate (e8+) model are not ported yet.
+`effective_multiplier`, `reassemble_merged`), and the encoder's search
+with the proxy rate model (efforts up to 7: the sub-8 search and the
+16/32/64 merge rungs) under every strategy, the thesis's homogeneity hooks
+included (`strategy/homogeneity.py`). The measured-rate (e8+) model is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,13 +21,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jxl_tpu_torch.strategy.homogeneity import (
+    ACS_DCT,
+    ACS_DCT4X4,
+    ACS_DCT4X8,
+    ACS_DCT8X4,
+    homogeneity_partition,
+    homogeneity_similarity_indices,
+    hook_b_factor,
+)
 from jxl_tpu_torch.transforms.dct import dct2d, idct2d
 from jxl_tpu_torch.transforms.quant import ac_steps_t
 
-ACS_DCT = 0
-ACS_DCT4X4 = 1
-ACS_DCT8X4 = 2
-ACS_DCT4X8 = 3
 ACS_DCT16X16 = 4
 ACS_DCT32X32 = 5
 ACS_DCT64X64 = 6
@@ -175,10 +181,22 @@ def _repeat2(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.repeat_interleave(torch.repeat_interleave(x, k, dim=0), k, dim=1)
 
 
-def search_acs(blocks: torch.Tensor, planes: torch.Tensor, distance, *, effort: int, qf_mul: torch.Tensor):
-    """AC-strategy search (BASELINE strategy, proxy rate). Returns
-    (acs [nby, nbx] int64, raw storage [3, nby, nbx, 8, 8] float32 of the
-    selected strategies, qsteps [3, nby, nbx, 8, 8] step field)."""
+def search_acs(
+    blocks: torch.Tensor, planes: torch.Tensor, distance, *, effort: int, qf_mul: torch.Tensor,
+    hook_a: int = 0, hook_b: bool = False, hooka_eps: float = 0.02,
+):
+    """AC-strategy search (proxy rate). Returns (acs [nby, nbx] int64, raw
+    storage [3, nby, nbx, 8, 8] float32 of the selected strategies, qsteps
+    [3, nby, nbx, 8, 8] step field).
+
+    The thesis's hooks (`codec.config.Strategy`):
+    - hook A: where the 8x8-level argmin picked plain DCT, take the
+      homogeneity partition's strategy instead; hook_a == 2 does so only
+      where the partition's candidate costs at most (1 + hooka_eps) times
+      the argmin's winner. Merge decisions use the cost from before the
+      override, as the C++ stores it.
+    - hook B: scale every sub-8 and merge candidate cost by 0.8 times the
+      homogeneity factor of the candidate's top-left block."""
     if effort >= 8:
         raise NotImplementedError(
             "effort >= 8 (measured-rate two-pass model and the 128/256 merge rungs) is not ported yet"
@@ -186,19 +204,32 @@ def search_acs(blocks: torch.Tensor, planes: torch.Tensor, distance, *, effort: 
     dev = blocks.device
     nby, nbx = blocks.shape[1], blocks.shape[2]
     sub8_steps = sub8_step_grids(distance, device=dev)
+    if hook_a or hook_b:
+        r_h, r_v, r_d = homogeneity_similarity_indices(planes, distance)
+    bfac = hook_b_factor(r_h, r_v, r_d) if hook_b else None
 
     sub8 = candidates_sub8(blocks)
     costs = []
     for sid in range(4):
         steps = sub8_steps[sid][:, None, None] * qf_mul[None, :, :, None, None]
         qc = torch.round(sub8[sid] / steps).to(torch.int32)
-        costs.append(_rate_bits(qc, (0, -2, -1)) * ENTROPY_MUL[sid])
+        c = _rate_bits(qc, (0, -2, -1)) * ENTROPY_MUL[sid]
+        if hook_b:
+            c = c * 0.8 * bfac
+        costs.append(c)
     stacked = torch.stack(costs)
     if effort >= 4:
         best8 = torch.argmin(stacked, dim=0)
     else:
         best8 = torch.zeros((nby, nbx), dtype=torch.int64, device=dev)
     cost_sel = torch.gather(stacked, 0, best8[None])[0]
+    if hook_a:
+        part = homogeneity_partition(r_h, r_v, r_d, distance)
+        override = best8 == ACS_DCT
+        if hook_a == 2:
+            cost_part = torch.gather(stacked, 0, part[None])[0]
+            override = override & (cost_part <= cost_sel * (1.0 + hooka_eps))
+        best8 = torch.where(override, part, best8)
     acs = best8
 
     merged = []  # (slots, merge mask, n, sid) per attempted rung
@@ -212,6 +243,8 @@ def search_acs(blocks: torch.Tensor, planes: torch.Tensor, distance, *, effort: 
         gmul = group_min_multiplier(qf_mul, k)[: gby * k : k, : gbx * k : k]
         qslots = torch.round(slots / (step_slots * gmul[None, :, :, None, None, None, None])).to(torch.int32)
         cost_m = _rate_bits(qslots, (0, -4, -3, -2, -1)) * ENTROPY_MUL[sid]
+        if hook_b:
+            cost_m = cost_m * 0.8 * bfac[: gby * k : k, : gbx * k : k]
         # group's current cost = sum of its selected per-block costs; the
         # epsilon breaks zero-cost ties toward the merge
         cur = cost_sel[: gby * k, : gbx * k].reshape(gby, k, gbx, k).sum(dim=(1, 3))

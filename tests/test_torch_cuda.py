@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
+from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
-from jxl_tpu_torch.entropy.grouped import decode_grouped, kernel_rows
+from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched, kernel_rows
 from jxl_tpu_torch.entropy.rans import quantize_histograms_t
 from jxl_tpu_torch.entropy.tokens import ALPHABET, tokenize
 
@@ -45,12 +45,13 @@ def _stream(T: int, lanes: int, seed: int, dev):
     return tok.to(dev), mant.to(dev), rows.to(dev), vals
 
 
-def _front(bucket, counts):
-    """Back-filled encode bucket [G, cap] -> decode buffer with each group's
-    stream at the front of its row, on the bucket's device."""
+def _front(bucket, counts, width=None):
+    """Back-filled encode bucket [G, cap] -> decode buffer [G, width] (default:
+    the largest count) with each group's stream at the front of its row, on
+    the bucket's device."""
     G, cap = bucket.shape
     c = counts.tolist()
-    out = torch.zeros((G, max(1, max(c))), dtype=torch.int32, device=bucket.device)
+    out = torch.zeros((G, width or max(1, max(c))), dtype=torch.int32, device=bucket.device)
     for g in range(G):
         out[g, : c[g]] = bucket[g, cap - c[g] :]
     return out
@@ -86,6 +87,68 @@ def test_kernels_match_plain(dev, lanes, T):
     np.testing.assert_array_equal(got, vals)
 
 
+@pytest.mark.parametrize("lanes", [128, 256, 512])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_batched_decode_matches_plain(dev, B, lanes):
+    """Kernel B2 against its plain version: B streams of unequal lengths
+    (one seed each) at shared caps, both phases joined by the carry."""
+    T = 48
+    t_a = T // 3
+    G = lanes // 128
+    capw, capm = enc_caps(T, lanes)
+    enc, rows, vals = [], [], []
+    for i in range(B):
+        tok, mant, r, v = _stream(T, lanes, seed=100 * B + lanes + i, dev=dev)
+        enc.append(encode_grouped_cuda(tok, mant, r, T=T, lanes=lanes, capw=capw, capm=capm))
+        rows.append(r)
+        vals.append(v)
+    ww = max(int(e[3].max()) for e in enc)
+    wm = max(int(e[4].max()) for e in enc)
+    words = torch.cat([_front(e[0], e[3], ww) for e in enc])
+    mants = torch.cat([_front(e[1], e[4], wm) for e in enc])
+    states = torch.stack([e[2] for e in enc])
+    rows_b = torch.stack(rows, dim=1)
+    ptr0 = torch.zeros((2, B * G), dtype=torch.int32, device=dev)
+    out = {}
+    n0 = decode_grouped_batched_cuda.launches
+    for name, fn in (("kernel", decode_grouped_batched_cuda), ("plain", decode_grouped_batched)):
+        va, st, p = fn(words, mants, states, rows_b[:t_a].contiguous(), ptr0, T=t_a, lanes=lanes)
+        vb, st2, p2 = fn(words, mants, st, rows_b[t_a:].contiguous(), p, T=T - t_a, lanes=lanes)
+        out[name] = (va, st, p, vb, st2, p2)
+    torch.cuda.synchronize()
+    assert decode_grouped_batched_cuda.launches == n0 + 2
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert torch.equal(a.cpu(), b.cpu())
+    got = torch.cat([out["kernel"][0], out["kernel"][3]], dim=1).cpu().numpy()
+    for i in range(B):
+        np.testing.assert_array_equal(got[i], vals[i])
+
+
+def test_grid_row_on_card(dev):
+    """A grid row encoded and decoded on the card: one encode launch per
+    point, B2 twice for the row and B1 not at all; values equal the CPU's,
+    pixels within 1 LSB of the CPU's."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container
+    from jxl_tpu_torch.codec.decode import decode_bytes_grid_stacked, decode_values_grid
+    from jxl_tpu_torch.codec.encode import encode_image_grid
+
+    img = _card_image()
+    ds = [0.5, 1.0, 3.0, 8.0]
+    e0, b0, s0 = encode_grouped_cuda.launches, decode_grouped_batched_cuda.launches, decode_grouped_cuda.launches
+    datas = encode_image_grid(img, CodecConfig(effort=7), ds, device=dev)
+    out = decode_bytes_grid_stacked(datas, device=dev)
+    torch.cuda.synchronize()
+    assert encode_grouped_cuda.launches - e0 >= len(ds)
+    assert decode_grouped_batched_cuda.launches - b0 == 2
+    assert decode_grouped_cuda.launches == s0
+    streams = [read_container(d) for d in datas]
+    assert torch.equal(decode_values_grid(streams, dev).cpu(), decode_values_grid(streams, "cpu"))
+    ref = decode_bytes_grid_stacked(datas, device="cpu")
+    assert out.shape == ref.shape
+    assert (out.cpu().to(torch.int32) - ref.to(torch.int32)).abs().max() <= 1
+
+
 def test_encode_overflow_relaunches_kernel(dev):
     lanes, T = 256, 64
     tok, mant, rows, _vals = _stream(T, lanes, seed=4, dev=dev)
@@ -107,16 +170,20 @@ def test_wrappers_reject_mixed_devices(dev):
         encode_grouped_cuda(tok, mant.cpu(), rows, T=T, lanes=lanes, capw=capw, capm=capm)
 
 
+def _card_image():
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
+    lum = np.clip(0.5 + 0.3 * np.sin(xx / 17.0) * np.cos(yy / 11.0) + rng.normal(0, 0.03, yy.shape), 0, 1)
+    return (np.stack([lum, lum * 0.9, lum * 0.8], axis=-1) * 255).astype(np.uint8)
+
+
 def test_codec_on_card_matches_cpu(dev):
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.container import read_container
     from jxl_tpu_torch.codec.decode import decode_bytes, decode_values
     from jxl_tpu_torch.codec.encode import encode_image
 
-    rng = np.random.default_rng(3)
-    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
-    lum = np.clip(0.5 + 0.3 * np.sin(xx / 17.0) * np.cos(yy / 11.0) + rng.normal(0, 0.03, yy.shape), 0, 1)
-    img = (np.stack([lum, lum * 0.9, lum * 0.8], axis=-1) * 255).astype(np.uint8)
+    img = _card_image()
     data = encode_image(img, CodecConfig(distance=1.0, effort=7), device=dev)
     s = read_container(data)
     assert torch.equal(decode_values(s, dev).cpu(), decode_values(s, "cpu"))

@@ -114,16 +114,12 @@ def _probe_image():
         dict(distance=0.0),
         dict(distance=1.0, effort=8),
         dict(distance=1.0, effort=9),
-        dict(distance=1.0, strategy="HOMOGENEITY_PARTITIONING"),
-        dict(distance=1.0, strategy="COMBINED"),
     ],
 )
 def test_unported_encode_modes_raise(config):
-    from jxl_tpu_torch.codec.config import CodecConfig, Strategy
+    from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.encode import encode_image
 
-    if "strategy" in config:
-        config = dict(config, strategy=Strategy[config["strategy"]])
     with pytest.raises(NotImplementedError):
         encode_image(_probe_image(), CodecConfig(**config), device="cpu")
 
@@ -145,18 +141,29 @@ def test_modular_candidate_raises_unless_disabled():
 
 
 def test_unported_entry_points_raise():
+    """What stays unported behind the ported entry points: JXTS striped
+    containers, uniform lossless grid rows, efforts 8-9 in the grid and
+    batch encodes."""
+    from jxl_tpu.codec.config import CodecConfig as JaxConfig
+    from jxl_tpu.codec.encode import encode_image as jax_encode
+
     from jxl_tpu_torch.codec import decode as tdec
     from jxl_tpu_torch.codec import encode as tenc
     from jxl_tpu_torch.codec.config import CodecConfig
 
     with pytest.raises(NotImplementedError):
-        tenc.encode_image_grid(_probe_image(), CodecConfig(), [1.0, 2.0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tenc.encode_images([(_probe_image(), CodecConfig(), "")], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tdec.decode_bytes_grid_stacked([b""], device="cpu")
-    with pytest.raises(NotImplementedError):
         tdec.decode_bytes(b"JXTS" + b"\0" * 32, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tdec.decode_bytes_grid_stacked([b"JXTS" + b"\0" * 32] * 2, device="cpu")
+    lossless = jax_encode(make_test_image(16, 24, seed=2), JaxConfig(distance=0.0))
+    with pytest.raises(NotImplementedError):
+        tdec.decode_bytes_grid_stacked([lossless, lossless], device="cpu")
+    with pytest.raises(NotImplementedError):
+        tenc.encode_image_grid(_probe_image(), CodecConfig(effort=8), [1.0, 2.0], device="cpu")
+    with pytest.raises(NotImplementedError):
+        tenc.encode_images_batched_async([_probe_image()], CodecConfig(effort=9), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tenc.encode_images([(_probe_image(), CodecConfig(distance=0.0), "")], device="cpu")
 
 
 def test_lossless_container_decode_raises():
