@@ -19,6 +19,12 @@ and no result line is printed:
            the bench image (10 sweep distances, and 32 points), both phases
            as the grid decode hands them over, bit for bit (values, states,
            pointers); every stream must equal B1's decode; timed;
+3c. B3 and B1 vs plain on the modular shapes: the d = 0 lossless token
+           streams (12 contexts) of the bench image, of
+           test_images/synth/synth02.png and of uniform noise of the same
+           size (past B3's default mantissa cap: the wrapper must relaunch
+           with grown caps); whether B3 relaunched is printed for each; bit
+           for bit, timed (plain versions one call each);
 4. main path, single image: encode_image + decode_bytes at d=1 e7 on the
            card; the kernels must have run (launch counts), PSNR / bpp must
            match the quality anchor, and the card's pixels must be within
@@ -30,7 +36,21 @@ and no result line is printed:
            encode_image's, the d=1 point meets the anchor, values and pixels
            equal the per-stream decodes on the card; bytes and PSNR printed
            per point;
-5. times:  warm single-image encode and decode throughput;
+4c. main path, efforts 8 and 9: encode_image + decode_bytes of the bench
+           image at d=1; B3 and B1 must run, pixels within 1 LSB of the CPU
+           plain path's decode; bytes, bpp, PSNR beside e7's;
+4d. main path, the modular family at full width on synth02.png (512x768,
+           65 colours): d=0 through encode_image must round-trip exactly
+           (palette or plain arm printed), so must the bench image at d=0;
+           encode_image_grid over the 10 distances with the per-point
+           VarDCT-vs-modular pick printed (mode, bytes, PSNR); the modular
+           row (`_modular_grid_async`) through decode_bytes_grid_stacked
+           with B2 exactly twice and B1 never, values and pixels equal to the
+           per-stream decodes, every point within the modular-lossy error
+           bound;
+5. times:  warm single-image encode and decode throughput: e7, e8, e9 at
+           d=1 on the bench image, d=0 of the bench image and synth02.png,
+           modular-lossy d=1 of synth02.png;
 5b. times: warm grid encode and grid decode throughput, 32 points at d=1.
 
 The last two lines are a JSON summary of the kernels and the result line
@@ -40,6 +60,7 @@ The last two lines are a JSON summary of the kernels and the result line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +77,7 @@ BPP_TOL_REL = 0.005
 # the reference harness's RD-sweep distance row (jxl_tpu/bench/sweep.py)
 RUST_DISTANCES = (0.5, 1.0, 1.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
 GRID_BATCH = 32  # points per grid row that bench.py times
+SYNTH02 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_images", "synth", "synth02.png")
 
 
 def bench_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
@@ -76,13 +98,15 @@ def bench_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     d = a.astype(np.float64) - b.astype(np.float64)
-    return float(10.0 * np.log10(255.0 * 255.0 / np.mean(d * d)))
+    mse = float(np.mean(d * d))
+    return float("inf") if mse == 0.0 else float(10.0 * np.log10(255.0 * 255.0 / mse))
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
+def cuda_ms(torch, fn, iters: int, warmup: bool = True) -> float:
     """Mean milliseconds per call of fn on the current stream (CUDA events),
-    after one warm-up call."""
-    fn()
+    after one warm-up call unless not `warmup`."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -115,6 +139,131 @@ def front_packed(torch, bucket, counts):
     return out
 
 
+def read_png_rgb8(path: str) -> np.ndarray:
+    """An 8-bit RGB, non-interlaced PNG -> u8 [H, W, 3], with the standard
+    library's zlib and numpy (the card's machine has no image library)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    o, idat, hdr = 8, [], None
+    while o < len(data):
+        (n,) = struct.unpack(">I", data[o : o + 4])
+        kind, body = data[o + 4 : o + 8], data[o + 8 : o + 8 + n]
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        o += 12 + n
+    w, h, depth, ctype, _comp, _filt, interlace = hdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise ValueError(f"{path}: only 8-bit RGB non-interlaced PNGs are read here")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    out = np.zeros((h, 3 * w), np.int64)
+    prev = np.zeros(3 * w, np.int64)
+    for y in range(h):
+        f, line = int(raw[y, 0]), raw[y, 1:].astype(np.int64)
+        if f == 0:
+            cur = line
+        elif f == 1:  # Sub: a running sum along the row, per channel
+            cur = np.cumsum(line.reshape(w, 3), axis=0).reshape(-1) % 256
+        elif f == 2:  # Up
+            cur = (line + prev) % 256
+        else:  # Average / Paeth: each byte depends on the one reconstructed left of it
+            ln, up, cur = line.tolist(), prev.tolist(), [0] * (3 * w)
+            for i in range(3 * w):
+                a = cur[i - 3] if i >= 3 else 0
+                b = up[i]
+                c = up[i - 3] if i >= 3 else 0
+                if f == 3:
+                    pred = (a + b) // 2
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (ln[i] + pred) % 256
+            cur = np.asarray(cur, np.int64)
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, 3).astype(np.uint8)
+
+
+def acs_ids(stream, dev) -> list:
+    """The strategy ids a VarDCT container's ACS map uses (its first
+    section, decoded on `dev`)."""
+    import torch
+
+    from jxl_tpu_torch.codec.decode import decode_values, unpredict_lcol
+    from jxl_tpu_torch.codec.layout import token_layout
+    from jxl_tpu_torch.entropy.tokens import zigzag_unmap
+
+    h = stream.header
+    lay = token_layout(h.height, h.width)
+    v = decode_values(stream, dev)[: lay["nb"]].to(torch.int64)
+    if (h.decode_params >> 3) & 1:
+        v = unpredict_lcol(zigzag_unmap(v).to(torch.int64).reshape(lay["nby"], lay["nbx"]))
+    return sorted(set(torch.clamp(v, 0, 8).reshape(-1).tolist()))
+
+
+def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain_iters: int, plain_warmup: bool):
+    """B3, then B1 over both phases (split at t_a, joined by the carry), on
+    one padded token stream: each held bit for bit against its plain
+    version on every output, the decode also against the encoded values
+    and the encoded stream lengths, and each timed with CUDA events.
+    Returns the errors, times, and whether B3 relaunched with grown caps."""
+    from jxl_tpu_torch.entropy import cuda_rans_enc
+    from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
+    from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
+    from jxl_tpu_torch.entropy.grouped import decode_grouped
+
+    G = lanes // 128
+    capw, capm = enc_caps(T, lanes)
+    n0 = encode_grouped_cuda.launches
+    enc_k = encode_grouped_cuda(tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm)
+    relaunched = encode_grouped_cuda.launches - n0 > 1
+    kw = dict(T=T, lanes=lanes, capw=enc_k[0].shape[1], capm=enc_k[1].shape[1])
+    enc_p = encode_grouped_plain(tokp, mantp, rows, **kw)
+    torch.cuda.synchronize()
+    enc_err = max_abs_diff(zip(enc_k, enc_p))
+    if enc_err != 0:
+        raise AssertionError(f"encode kernel differs from its plain version (max |d| {enc_err})")
+    enc_ms = cuda_ms(torch, lambda: cuda_rans_enc._launch(tokp, mantp, rows, **kw), 20)
+    enc_plain_ms = cuda_ms(torch, lambda: encode_grouped_plain(tokp, mantp, rows, **kw), plain_iters, plain_warmup)
+
+    words_g = front_packed(torch, enc_k[0], enc_k[3])
+    mant_g = front_packed(torch, enc_k[1], enc_k[4])
+    ptr0 = torch.zeros((2, G), dtype=torch.int32, device=tokp.device)
+    rows_a, rows_b = rows[:t_a].contiguous(), rows[t_a:].contiguous()
+
+    def decode_both(fn):
+        va, st, p = fn(words_g, mant_g, enc_k[2], rows_a, ptr0, T=t_a, lanes=lanes)
+        vb, st2, p2 = fn(words_g, mant_g, st, rows_b, p, T=T - t_a, lanes=lanes)
+        return va, st, p, vb, st2, p2
+
+    dec_k = decode_both(decode_grouped_cuda)
+    dec_p = decode_both(decode_grouped)
+    torch.cuda.synchronize()
+    dec_err = max_abs_diff(zip(dec_k, dec_p))
+    if dec_err != 0:
+        raise AssertionError(f"decode kernel differs from its plain version (max |d| {dec_err})")
+    nbits = torch.where(tokp >= 32, tokp - 27, 0)
+    expect = torch.where(tokp >= 32, (1 << nbits) + mantp, tokp)
+    if not torch.equal(torch.cat([dec_k[0], dec_k[3]]), expect):
+        raise AssertionError("decode kernel does not return the encoded values")
+    if not torch.equal(dec_k[5], torch.stack([enc_k[3], enc_k[4]])):
+        raise AssertionError("decode kernel did not consume exactly the encoded streams")
+    dec_ms = cuda_ms(torch, lambda: decode_both(decode_grouped_cuda), 20)
+    dec_plain_ms = cuda_ms(torch, lambda: decode_both(decode_grouped), plain_iters, plain_warmup)
+    return dict(
+        enc_err=enc_err, dec_err=dec_err, enc_ms=enc_ms, enc_plain_ms=enc_plain_ms, dec_ms=dec_ms,
+        dec_plain_ms=dec_plain_ms, relaunched=relaunched, caps=(kw["capw"], kw["capm"]), default_caps=(capw, capm),
+        mbytes=int(enc_k[4].sum()),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -144,20 +293,33 @@ def main() -> int:
         decode_values_grid,
     )
     from jxl_tpu_torch.codec.encode import (
+        _modular_async,
+        _modular_grid_async,
         _step_ctx_v8,
         encode_image,
         encode_image_grid,
+        encoder_knobs,
         entropy_inputs,
         pick_lanes,
         tokens_from_rgb,
     )
-    from jxl_tpu_torch.codec.layout import padded_layout, token_layout
+    from jxl_tpu_torch.codec.layout import lossless_layout, padded_layout, token_layout
+    from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens, modular_steps
     from jxl_tpu_torch.core.device import resolve_device
     from jxl_tpu_torch.cuda_build import BUILD_LOGS, build
-    from jxl_tpu_torch.entropy import cuda_rans_enc
     from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
-    from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
-    from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched
+    from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda
+    from jxl_tpu_torch.entropy.grouped import decode_grouped_batched
+
+    def reset_counts():
+        encode_grouped_cuda.launches = 0
+        decode_grouped_cuda.launches = 0
+        decode_grouped_batched_cuda.launches = 0
+
+    def read_counts():
+        """(B3, B1, B2) launches since reset_counts(), after the card is done."""
+        torch.cuda.synchronize()
+        return encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches
 
     resolve_device(dev)
 
@@ -189,42 +351,10 @@ def main() -> int:
         f"(phase A {t_a}, phase B {T - t_a}), caps ({capw}, {capm})"
     )
 
-    kw = dict(T=T, lanes=lanes, capw=capw, capm=capm)
-    enc_k = encode_grouped_cuda(tokp, mantp, rows, **kw)
-    enc_p = encode_grouped_plain(tokp, mantp, rows, **kw)
-    torch.cuda.synchronize()
-    enc_err = max_abs_diff(zip(enc_k, enc_p))
-    if enc_err != 0:
-        raise AssertionError(f"encode kernel differs from its plain version (max |d| {enc_err})")
-    enc_ms = cuda_ms(torch, lambda: cuda_rans_enc._launch(tokp, mantp, rows, **kw), 20)
-    enc_plain_ms = cuda_ms(torch, lambda: encode_grouped_plain(tokp, mantp, rows, **kw), 2)
+    b3 = hold_stream(torch, tokp, mantp, rows, T=T, t_a=t_a, lanes=lanes, plain_iters=2, plain_warmup=True)
+    enc_err, enc_ms, enc_plain_ms = b3["enc_err"], b3["enc_ms"], b3["enc_plain_ms"]
+    dec_err, dec_ms, dec_plain_ms = b3["dec_err"], b3["dec_ms"], b3["dec_plain_ms"]
     print(f"[3 encode kernel] bit-exact vs plain; kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms")
-
-    words_g = front_packed(torch, enc_k[0], enc_k[3])
-    mant_g = front_packed(torch, enc_k[1], enc_k[4])
-    states = enc_k[2]
-    ptr0 = torch.zeros((2, G), dtype=torch.int32, device=dev)
-    rows_a, rows_b = rows[:t_a].contiguous(), rows[t_a:].contiguous()
-
-    def decode_both(fn):
-        va, st, p = fn(words_g, mant_g, states, rows_a, ptr0, T=t_a, lanes=lanes)
-        vb, st2, p2 = fn(words_g, mant_g, st, rows_b, p, T=T - t_a, lanes=lanes)
-        return va, st, p, vb, st2, p2
-
-    dec_k = decode_both(decode_grouped_cuda)
-    dec_p = decode_both(decode_grouped)
-    torch.cuda.synchronize()
-    dec_err = max_abs_diff(zip(dec_k, dec_p))
-    if dec_err != 0:
-        raise AssertionError(f"decode kernel differs from its plain version (max |d| {dec_err})")
-    nbits = torch.where(tokp >= 32, tokp - 27, 0)
-    expect = torch.where(tokp >= 32, (1 << nbits) + mantp, tokp)
-    if not torch.equal(torch.cat([dec_k[0], dec_k[3]]), expect):
-        raise AssertionError("decode kernel does not return the encoded values")
-    if not torch.equal(dec_k[5], torch.stack([enc_k[3], enc_k[4]])):
-        raise AssertionError("decode kernel did not consume exactly the encoded streams")
-    dec_ms = cuda_ms(torch, lambda: decode_both(decode_grouped_cuda), 20)
-    dec_plain_ms = cuda_ms(torch, lambda: decode_both(decode_grouped), 2)
     print(
         f"[3 decode kernel] both phases bit-exact vs plain (values, states, pointers); "
         f"kernel {dec_ms:.3f} ms, plain {dec_plain_ms:.1f} ms (A + B)"
@@ -285,6 +415,33 @@ def main() -> int:
         f"B1 B=1 {dec_ms:.3f} ms (phase 3, d=1), {b1_dense_ms:.3f} ms (d={RUST_DISTANCES[0]}); "
         f"plain B={GRID_BATCH} {b2_plain_ms:.1f} ms"
     )
+
+    # ---- 3c. B3 and B1 vs plain on the modular shapes (d = 0 token streams)
+    synth = read_png_rgb8(SYNTH02)
+    noise = np.random.default_rng(0).integers(0, 256, img.shape, dtype=np.uint8)
+    ll_kernels = {}
+    for name, im in (("bench", img), ("synth02", synth), ("noise", noise)):
+        hh, ww = im.shape[:2]
+        ll_lanes = pick_lanes(3 * hh * ww, 256)
+        llay = lossless_layout(hh, ww, ll_lanes)
+        tok_l, _nb, mant_l, _p, qs_l = lossless_tokens(
+            torch.from_numpy(im).to(dev), height=hh, width=ww, distance=0.0
+        )
+        tokp_l, mantp_l, rows_l, _f = entropy_inputs(tok_l, mant_l, ll_step_ctx(llay, qs_l), llay, ll_lanes)
+        r = hold_stream(
+            torch, tokp_l, mantp_l, rows_l, T=llay["T"], t_a=llay["t_a"], lanes=ll_lanes, plain_iters=1,
+            plain_warmup=False,
+        )
+        ll_kernels[name] = r
+        if name == "noise" and not r["relaunched"]:
+            raise AssertionError("the uniform-noise d=0 stream did not overflow B3's default mantissa cap")
+        print(
+            f"[3c {name} d=0] {llay['n_tokens']} tokens, lanes {ll_lanes}, T {llay['T']} (phase A {llay['t_a']}), "
+            f"{llay['n_ctx']} contexts, {r['mbytes']} mantissa bytes; B3 caps {r['default_caps']} -> "
+            f"{'relaunched at ' + str(r['caps']) if r['relaunched'] else 'no relaunch'}; B3 and B1 (A + B) "
+            f"bit-exact vs plain; B3 {r['enc_ms']:.3f} ms (plain {r['enc_plain_ms']:.1f} ms), "
+            f"B1 {r['dec_ms']:.3f} ms (plain {r['dec_plain_ms']:.1f} ms)"
+        )
 
     # ---- 4. main path, single image
     encode_grouped_cuda.launches = 0
@@ -359,6 +516,90 @@ def main() -> int:
                 f"{g_db:.4f} dB; values and pixels equal the per-stream decodes on every row"
             )
 
+    # ---- 4c. main path, efforts 8 and 9 (two-pass measured rate, 128 / 256 merges)
+    effort_data = {}
+    for effort in (8, 9):
+        reset_counts()
+        data_e = encode_image(img, CodecConfig(distance=1.0, effort=effort), device=dev)
+        out_e = decode_bytes(data_e, device=dev)
+        ne, n1, n2 = read_counts()
+        if ne < 1 or n1 < 2 or n2 != 0:
+            raise AssertionError(f"e{effort} launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= 1, >= 2, 0)")
+        n_enc, n_dec = n_enc + ne, n_dec + n1
+        lsb_e = int(np.abs(out_e.astype(np.int32) - decode_bytes(data_e, device="cpu")).max())
+        if lsb_e > 1:
+            raise AssertionError(f"e{effort}: card vs CPU pixels differ by {lsb_e} LSB (> 1)")
+        ids = acs_ids(read_container(data_e), dev)
+        effort_data[effort] = data_e
+        print(
+            f"[4c e{effort}] {len(data_e)} bytes, {len(data_e) * 8 / (h * w):.4f} bpp, PSNR {psnr(img, out_e):.4f} dB "
+            f"(e7: {len(data)} bytes, {bpp:.4f} bpp, {q_db:.4f} dB); launches B3 {ne}, B1 {n1}; "
+            f"card vs CPU pixels max |d| {lsb_e} LSB; strategy ids {ids}"
+        )
+
+    # ---- 4d. main path, the modular family at full width
+    knobs = encoder_knobs()
+    mod_data = {}
+    for name, im in (("synth02", synth), ("bench", img)):
+        reset_counts()
+        d0 = encode_image(im, CodecConfig(distance=0.0), device=dev)
+        out0 = decode_bytes(d0, device=dev)
+        ne, n1, n2 = read_counts()
+        if ne < 1 or n1 < 2:
+            raise AssertionError(f"{name} d=0 launches: B3 {ne}, B1 {n1} (want >= 1, >= 2)")
+        n_enc, n_dec = n_enc + ne, n_dec + n1
+        if not np.array_equal(out0, im):
+            raise AssertionError(f"{name} d=0 does not round-trip exactly")
+        s0 = read_container(d0)
+        mod_data[name] = d0
+        arm = f"palette ({len(s0.acs_extra) // 3} colours)" if s0.acs_extra else "plain YCoCg-R"
+        print(
+            f"[4d {name} d=0] exact round trip; {len(d0)} bytes, {len(d0) * 8 / im.shape[0] / im.shape[1]:.4f} bpp, "
+            f"{arm} arm kept; launches B3 {ne}, B1 {n1}"
+        )
+
+    reset_counts()
+    picks = encode_image_grid(synth, CodecConfig(effort=7), RUST_DISTANCES, device=dev)
+    ne, n1, n2 = read_counts()
+    n_enc, n_dec = n_enc + ne, n_dec + n1
+    if ne < 2 * len(RUST_DISTANCES) or n1 < 4 * len(RUST_DISTANCES):
+        raise AssertionError(f"synth02 grid pick launches: B3 {ne}, B1 {n1} (want >= 20, >= 40)")
+    print(
+        f"[4d synth02 grid pick] launches B3 {ne}, B1 {n1} (both families encoded, both decoded per point); "
+        + ", ".join(
+            f"d={d}: {'modular' if read_container(b).header.lossless else 'VarDCT'} {len(b)} B "
+            f"{psnr(synth, decode_bytes(b, device=dev)):.4f} dB"
+            for d, b in zip(RUST_DISTANCES, picks)
+        )
+    )
+
+    synth_t = torch.from_numpy(synth).to(dev)
+    reset_counts()
+    mrow = _modular_grid_async(synth_t, CodecConfig(), RUST_DISTANCES, "", knobs)()
+    mout = decode_bytes_grid_stacked(mrow, device=dev)
+    ne, n1, n2 = read_counts()
+    if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0:
+        raise AssertionError(f"modular row launches: B3 {ne}, B2 {n2}, B1 {n1} (want >= 10, 2, 0)")
+    n_enc, n_b2 = n_enc + ne, n_b2 + n2
+    mstreams = [read_container(b) for b in mrow]
+    mvals = decode_values_grid(mstreams, dev)
+    errs = []
+    for i, (d, s) in enumerate(zip(RUST_DISTANCES, mstreams)):
+        if not torch.equal(mvals[i], decode_values(s, dev)):
+            raise AssertionError(f"modular row d={d}: grid values differ from the per-stream decode")
+        if not torch.equal(mout[i], decode_bytes_device(mrow[i], device=dev)):
+            raise AssertionError(f"modular row d={d}: grid pixels differ from the per-stream decode")
+        sy, sco, scg = modular_steps(d).tolist()
+        bound = (sy + (scg + 1) // 2 + (sco + 1) // 2 + 2) // 2 + 2
+        err = int(np.abs(mout[i].cpu().numpy().astype(np.int32) - synth.astype(np.int32)).max())
+        if err > bound:
+            raise AssertionError(f"modular row d={d}: max error {err} above the bound {bound}")
+        errs.append((d, len(mrow[i]), psnr(synth, mout[i].cpu().numpy()), err, bound))
+    print(
+        f"[4d synth02 modular row] launches B3 {ne}, B2 {n2}, B1 {n1}; values and pixels equal the per-stream "
+        "decodes; " + ", ".join(f"d={d}: {nb} B {q:.4f} dB err {e} <= {b}" for d, nb, q, e, b in errs)
+    )
+
     # ---- 5. times
     mp = h * w / 1e6
     reps = 5
@@ -373,14 +614,27 @@ def main() -> int:
             ts.append(time.perf_counter() - t)
         return ts
 
-    enc_ts = wall(lambda: encode_image(img, cfg, device=dev))
-    dec_ts = wall(lambda: decode_bytes_device(data, device=dev))
-    print(
-        f"[5 times] {kind} ({smi}): single-image encode "
-        f"{mp / np.median(enc_ts):.2f} MP/s (median {1e3 * np.median(enc_ts):.1f} ms, "
-        f"min {1e3 * min(enc_ts):.1f} ms), decode {mp / np.median(dec_ts):.2f} MP/s "
-        f"(median {1e3 * np.median(dec_ts):.1f} ms, min {1e3 * min(dec_ts):.1f} ms), {reps} warm runs"
+    def times(label, encode, encoded):
+        enc_ts = wall(encode)
+        dec_ts = wall(lambda: decode_bytes_device(encoded, device=dev))
+        print(
+            f"[5 times] {kind} ({smi}): {label}: encode "
+            f"{mp / np.median(enc_ts):.2f} MP/s (median {1e3 * np.median(enc_ts):.1f} ms, "
+            f"min {1e3 * min(enc_ts):.1f} ms), decode {mp / np.median(dec_ts):.2f} MP/s "
+            f"(median {1e3 * np.median(dec_ts):.1f} ms, min {1e3 * min(dec_ts):.1f} ms), {reps} warm runs"
+        )
+
+    times("single-image e7 d=1", lambda: encode_image(img, cfg, device=dev), data)
+    for effort in (8, 9):
+        cfg_e = CodecConfig(distance=1.0, effort=effort)
+        times(f"e{effort} d=1", lambda: encode_image(img, cfg_e, device=dev), effort_data[effort])
+    times("bench d=0 (lossless)", lambda: encode_image(img, CodecConfig(distance=0.0), device=dev), mod_data["bench"])
+    times(
+        "synth02 d=0 (palette and plain arms)",
+        lambda: encode_image(synth, CodecConfig(distance=0.0), device=dev), mod_data["synth02"],
     )
+    synth_mod = _modular_async(synth_t, cfg, "", knobs)
+    times("synth02 modular-lossy d=1", lambda: _modular_async(synth_t, cfg, "", knobs)(), synth_mod())
 
     # ---- 5b. grid times: a row of GRID_BATCH points at d=1, as bench.py times it
     dists = [1.0] * GRID_BATCH
@@ -400,7 +654,8 @@ def main() -> int:
         {
             "name": "rans_decode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans.py:239", "launches": n_dec,
-            "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+            "max_abs_err": max([dec_err] + [r["dec_err"] for r in ll_kernels.values()]),
+            "ms": dec_ms, "plain_ms": dec_plain_ms,
         },
         {
             "name": "rans_decode_batched", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
@@ -410,7 +665,8 @@ def main() -> int:
         {
             "name": "rans_encode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_enc.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans_enc.py:208", "launches": n_enc,
-            "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
+            "max_abs_err": max([enc_err] + [r["enc_err"] for r in ll_kernels.values()]),
+            "ms": enc_ms, "plain_ms": enc_plain_ms,
         },
     ]
     print(smi)

@@ -1,20 +1,26 @@
-"""JXT decoder, lossy path (port of `jxl_tpu/codec/decode.py`).
+"""JXT decoder (port of `jxl_tpu/codec/decode.py`).
 
 Container bytes -> (host) parse -> one upload of the per-group word and
 mantissa buckets -> the grouped rANS decode kernel in two phases joined by
-its carry (phase A: maps, CfL, nnz map, DC; phase B: AC, whose per-step
-contexts come from the nnz map phase A decoded) -> dequant, IDCT ladder,
-CfL, EPF and XYB -> sRGB, as torch ops on the same device.
+its carry -> reconstruction as torch ops on the same device:
+- VarDCT streams: phase A the maps, CfL, nnz map and DC; phase B the AC,
+  whose per-step contexts come from the nnz map phase A decoded; then
+  dequant, IDCT ladder, CfL, EPF and XYB -> sRGB;
+- modular streams (flag bit 1: lossless, modular-lossy, palette): phase A
+  the per-block activity maps; phase B the residual planes, whose contexts
+  come from those maps (`_ll_phase_b_ctx`); then the prefix-sum inverse
+  predictors, dequant by the header distance's step law and YCoCg-R ->
+  RGB, or the palette gather (`codec/lossless.py:reconstruct_lossless`).
 
 A single stream decodes through kernel B1 (`decode_grouped_cuda`). A grid
-row — same-geometry streams, such as one image's RD-sweep points —
-decodes through kernel B2 (`decode_grouped_batched_cuda`): one launch per
-phase for the whole row, then reconstruction stream by stream.
+row — same-geometry streams of one coding family, such as one image's
+RD-sweep points — decodes through kernel B2 (`decode_grouped_batched_cuda`):
+one launch per phase for the whole row, then reconstruction stream by
+stream. Palette streams and mixed rows decode stream by stream.
 
 Entry points take an explicit `device`; `resolve_device` turns TF32 off
-there on CUDA. Not ported yet, and raising NotImplementedError: lossless /
-modular streams (codec/lossless.py), including uniform lossless grid rows,
-and JXTS striped containers (codec/tiled.py).
+there on CUDA. Not ported yet, and raising NotImplementedError: JXTS
+striped containers (codec/tiled.py).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from jxl_tpu_torch.codec.container import JxtStream, read_container
 from jxl_tpu_torch.codec.encode import ac_step_ctx, bucket_perm
-from jxl_tpu_torch.codec.layout import NNZ_Q, padded_layout, token_layout
+from jxl_tpu_torch.codec.layout import LL_Q, NNZ_Q, lossless_layout, padded_layout, token_layout
+from jxl_tpu_torch.codec.lossless import ll_step_ctx, reconstruct_lossless
 from jxl_tpu_torch.core.device import resolve_device
 from jxl_tpu_torch.core.xyb import xyb_to_srgb
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
@@ -243,11 +250,27 @@ def _stream_buffers(stream: JxtStream, capw: int, capm: int):
     return wg, mg
 
 
-def _lossy_only(stream: JxtStream):
-    if stream.header.lossless:
-        raise NotImplementedError(
-            "lossless / modular streams (codec/lossless.py) are not ported to jxl_tpu_torch yet"
-        )
+def _layout(header):
+    """The padded layout of a stream's coding family and geometry."""
+    if header.lossless:
+        return lossless_layout(header.height, header.width, header.lanes)
+    return padded_layout(header.height, header.width, header.lanes)
+
+
+def _ll_phase_b_ctx(vals_a: torch.Tensor, lay) -> torch.Tensor:
+    """Modular phase-B step contexts from the decoded activity maps (phase
+    A's three flag spans, clipped to the class range)."""
+    flags = [vals_a[dst : dst + n_real] for _c, dst, n_real, _p in lay["spans"][:3]]
+    q = torch.clamp(torch.stack(flags).to(torch.int64), 0, LL_Q - 1)
+    q_sorted = torch.gather(q, 1, bucket_perm(q, lay["nbl"]))
+    return ll_step_ctx(lay, q_sorted)[lay["t_a"] :]
+
+
+def _phase_b_ctx(vals_a: torch.Tensor, header, lay) -> torch.Tensor:
+    if header.lossless:
+        return _ll_phase_b_ctx(vals_a, lay)
+    _qf, q_sorted = _nnz_map_from_padded(vals_a, header.decode_params, lay)
+    return ac_step_ctx(lay, q_sorted)
 
 
 def _scan_one(words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int):
@@ -257,8 +280,8 @@ def _scan_one(words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int):
 
 
 def _padded_values(streams, dev: torch.device, scan) -> torch.Tensor:
-    """Both rANS phases of same-geometry lossy streams -> padded value
-    streams [B, n_padded] int32 on `dev`.
+    """Both rANS phases of same-geometry streams of one coding family ->
+    padded value streams [B, n_padded] int32 on `dev`.
 
     `scan` runs one phase for all streams with decode_grouped_batched's
     arguments: `_scan_one` (kernel B1) for a single stream,
@@ -269,7 +292,7 @@ def _padded_values(streams, dev: torch.device, scan) -> torch.Tensor:
     lanes = h.lanes
     G = lanes // GROUP
     B = len(streams)
-    lay = padded_layout(h.height, h.width, lanes)
+    lay = _layout(h)
     t_a, T = lay["t_a"], lay["T"]
     capw = max(1, max(int(s.wcounts.max()) for s in streams))
     capm = max(1, max(int(s.mcounts.max()) for s in streams))
@@ -284,10 +307,7 @@ def _padded_values(streams, dev: torch.device, scan) -> torch.Tensor:
     step_ctx_a = torch.from_numpy(lay["step_ctx"][:t_a]).to(dev)
     rows_a = torch.stack([kernel_rows(step_ctx_a, f, c) for f, c in zip(freqs, cums)], dim=1)
     vals_a, st, ptrs = scan(words_g, mant_g, states, rows_a, ptrs, T=t_a, lanes=lanes)
-    rows_b = []
-    for i, s in enumerate(streams):
-        _qf, q_sorted = _nnz_map_from_padded(vals_a[i], s.header.decode_params, lay)
-        rows_b.append(kernel_rows(ac_step_ctx(lay, q_sorted), freqs[i], cums[i]))
+    rows_b = [kernel_rows(_phase_b_ctx(vals_a[i], s.header, lay), freqs[i], cums[i]) for i, s in enumerate(streams)]
     vals_b, _st, _ptrs = scan(words_g, mant_g, st, torch.stack(rows_b, dim=1), ptrs, T=T - t_a, lanes=lanes)
     return torch.cat([vals_a, vals_b], dim=1)
 
@@ -299,32 +319,47 @@ def _unpad(values_p: torch.Tensor, lay) -> torch.Tensor:
 
 def decode_values(stream: JxtStream, device) -> torch.Tensor:
     """The decoded value stream [n_tokens] int32 (K-padding removed) of a
-    lossy container: both rANS phases (kernel B1), on `device`."""
+    container: both rANS phases (kernel B1), on `device`."""
     dev = resolve_device(device)
-    _lossy_only(stream)
-    h = stream.header
     values_p = _padded_values([stream], dev, _scan_one)[0]
-    return _unpad(values_p, padded_layout(h.height, h.width, h.lanes))
+    return _unpad(values_p, _layout(stream.header))
 
 
 def decode_values_grid(streams, device) -> torch.Tensor:
     """The decoded value streams [N, n_tokens] int32 of a uniform row of
-    lossy containers (same height, width and lanes): both rANS phases for
-    the whole row in one kernel-B2 launch each, on `device`."""
+    containers (same height, width, lanes and coding family): both rANS
+    phases for the whole row in one kernel-B2 launch each, on `device`."""
     dev = resolve_device(device)
-    for s in streams:
-        _lossy_only(s)
     if not _same_geometry(streams):
-        raise ValueError("decode_values_grid takes streams of one height, width and lane count")
-    h = streams[0].header
-    return _unpad(_padded_values(streams, dev, decode_grouped_batched_cuda), padded_layout(h.height, h.width, h.lanes))
+        raise ValueError("decode_values_grid takes streams of one height, width, lane count and coding family")
+    return _unpad(_padded_values(streams, dev, decode_grouped_batched_cuda), _layout(streams[0].header))
+
+
+def _palette(stream: JxtStream, dev: torch.device):
+    """A palette stream's palette as u8 [256, 3] on `dev` (entries past the
+    signalled ones are zero), or None for any other stream."""
+    if not (stream.header.lossless and len(stream.acs_extra) >= 3):
+        return None
+    pal = np.zeros((256, 3), np.uint8)
+    p = np.frombuffer(stream.acs_extra, np.uint8).reshape(-1, 3)
+    pal[: len(p)] = p
+    return torch.from_numpy(pal).to(dev)
+
+
+def _reconstruct_stream(values: torch.Tensor, stream: JxtStream) -> torch.Tensor:
+    """A stream's decoded values -> RGB u8 [H, W, 3] on values' device."""
+    h = stream.header
+    if h.lossless:
+        return reconstruct_lossless(
+            values, h.decode_params, height=h.height, width=h.width, distance=h.distance,
+            pal=_palette(stream, values.device),
+        )
+    return _reconstruct(values, h.distance, h.decode_params, height=h.height, width=h.width)
 
 
 def decode_stream_device(stream: JxtStream, *, device) -> torch.Tensor:
     """JxtStream -> RGB u8 [H, W, 3] tensor on `device`."""
-    h = stream.header
-    values = decode_values(stream, device)
-    return _reconstruct(values, h.distance, h.decode_params, height=h.height, width=h.width)
+    return _reconstruct_stream(decode_values(stream, device), stream)
 
 
 def decode_stream(stream: JxtStream, *, device) -> np.ndarray:
@@ -381,20 +416,14 @@ def decode_bytes_grid_stacked(datas, *, device):
     row, then reconstruction stream by stream.
 
     Returns None when the row is a single stream or is not uniform
-    (geometry, lanes, coding family or palette differ): callers decode
-    those per stream. A uniform lossless / modular row raises
-    NotImplementedError (codec/lossless.py is not ported yet)."""
+    (geometry, lanes or coding family differ, or a palette stream is in
+    it): callers decode those per stream. A uniform modular row (lossless
+    or modular-lossy points) batches like a VarDCT row."""
     streams = [_read(b) for b in datas]
     if not _uniform_row(streams):
         return None
     values = decode_values_grid(streams, device)
-    h0 = streams[0].header
-    return torch.stack(
-        [
-            _reconstruct(values[i], s.header.distance, s.header.decode_params, height=h0.height, width=h0.width)
-            for i, s in enumerate(streams)
-        ]
-    )
+    return torch.stack([_reconstruct_stream(values[i], s) for i, s in enumerate(streams)])
 
 
 def decode_bytes_grid_device(datas, *, device) -> list:

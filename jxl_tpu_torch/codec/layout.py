@@ -42,7 +42,7 @@ CTX_AC_BASE = 9
 N_CTX = CTX_AC_BASE + 3 * 63 * NNZ_Q  # 765
 CFL_TILE = 4  # chroma-from-luma tile size in 8x8 blocks (32x32 pixels)
 
-# lossless per-8x8-block activity classes (codec/lossless.py, not ported)
+# lossless per-8x8-block activity classes (codec/lossless.py)
 LL_Q = 3
 LL_EDGES = (1, 33)
 
@@ -157,8 +157,7 @@ def lossless_layout(height: int, width: int, lanes: int):
     """Token layout of the lossless modular mode (v8): per-(channel, 8x8
     block) activity flags first, then the three residual planes 8-padded,
     block-major, activity-sorted. Contexts: 0-2 flag maps, 3 + q * 3 + c
-    pixels. Decoding such streams is not ported yet; the layout is here
-    because the container format is defined by it."""
+    pixels."""
     hp = -(-height // 8) * 8
     wp = -(-width // 8) * 8
     nbl = (hp // 8) * (wp // 8)

@@ -1,13 +1,14 @@
-"""Per-image histogram clustering for the v8 context set (port of
-`cluster_histograms_kmeans` in `jxl_tpu/entropy/cluster.py`).
+"""Per-image histogram clustering (port of `jxl_tpu/entropy/cluster.py`).
 
-Two stages, as in the reference: a Lloyd k-means on the cross-entropy
-objective seeded by a static structural grouping of the 765 contexts (the
-9 non-AC contexts alone, AC contexts by bucket x channel x coarse band),
-then a header-aware agglomerative merge of the <= k centres in a few
-vectorised rounds (mutual best pairs with a negative
-dH - header-saving score merge). The cost matrix and centre updates are
-float32 matrix products (TF32 off, see core.device).
+The small-context modes (lossless / modular, 12 contexts) run the greedy
+pairwise merge `cluster_histograms`. The v8 lossy context set (765) runs
+`cluster_histograms_kmeans`, two stages as in the reference: a Lloyd
+k-means on the cross-entropy objective seeded by a static structural
+grouping of the 765 contexts (the 9 non-AC contexts alone, AC contexts by
+bucket x channel x coarse band), then a header-aware agglomerative merge
+of the <= k centres in a few vectorised rounds (mutual best pairs with a
+negative dH - header-saving score merge). The cost matrix and centre
+updates are float32 matrix products (TF32 off, see core.device).
 """
 
 from __future__ import annotations
@@ -26,6 +27,47 @@ def _entropy_bits(c: torch.Tensor) -> torch.Tensor:
     return n * torch.log2(torch.clamp(n, min=1.0)) - torch.sum(
         cf * torch.log2(torch.clamp(cf, min=1.0)), dim=-1
     )
+
+
+def _pair_scores(c: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[k, k] merge scores of count rows c [k, A]: the payload growth
+    dH = H(c_i + c_j) - H(c_i) - H(c_j) minus the header bytes one merged
+    sparse table saves (8 * (2 + 3 * |shared symbols|) bits); +inf where
+    not `valid`."""
+    h = _entropy_bits(c)
+    d_h = _entropy_bits(c[:, None, :] + c[None, :, :]) - h[:, None] - h[None, :]
+    nz = c > 0.0
+    overlap = torch.sum((nz[:, None, :] & nz[None, :, :]).to(torch.float32), dim=-1)
+    return torch.where(valid, d_h - 8.0 * (2.0 + 3.0 * overlap), torch.inf)
+
+
+def cluster_histograms(counts: torch.Tensor):
+    """Greedy merge of the small-context modes (lossless / modular): C - 1
+    rounds, each merging the lowest-scoring live pair (i < j, first flat
+    index on ties, j folds into i) while its score is negative.
+
+    counts [C, A] -> (expanded [C, A] int32, row c holding its cluster's
+    merged counts; cmap [C] int64 cluster representative ids). Runs on the
+    device without host syncs."""
+    C = counts.shape[0]
+    dev = counts.device
+    c = counts.to(torch.float32)
+    iota = torch.arange(C, device=dev)
+    alive = torch.ones(C, dtype=torch.bool, device=dev)
+    cmap = iota.clone()
+    for _ in range(C - 1):
+        valid = alive[:, None] & alive[None, :] & (iota[:, None] < iota[None, :])
+        score = _pair_scores(c, valid).reshape(-1)
+        flat = torch.argmin(score)
+        bi, bj = flat // C, flat % C
+        do = score[flat] < 0.0
+        merged = c.clone()
+        merged[bi] = c[bi] + c[bj]
+        merged[bj] = 0.0
+        c = torch.where(do, merged, c)
+        alive = alive & ~(do & (iota == bj))
+        cmap = torch.where(do & (cmap == bj), bi, cmap)
+    return torch.round(c[cmap]).to(torch.int32), cmap
 
 
 def _structural_groups(C: int, k: int) -> np.ndarray:
@@ -52,14 +94,8 @@ def _merge_rounds(c: torch.Tensor, k: int, rounds: int = 5):
     alive = torch.ones(k, dtype=torch.bool, device=dev)
     cmap = iota.clone()
     for _ in range(rounds):
-        h = _entropy_bits(c)
-        pair = c[:, None, :] + c[None, :, :]
-        d_h = _entropy_bits(pair) - h[:, None] - h[None, :]
-        nz = c > 0.0
-        overlap = torch.sum((nz[:, None, :] & nz[None, :, :]).to(torch.float32), dim=-1)
-        saving = 8.0 * (2.0 + 3.0 * overlap)
         valid = alive[:, None] & alive[None, :] & (iota[:, None] != iota[None, :])
-        score = torch.where(valid, d_h - saving, torch.inf)
+        score = _pair_scores(c, valid)
         best_j = torch.argmin(score, dim=1)
         best_s = torch.gather(score, 1, best_j[:, None])[:, 0]
         mutual = (best_j[best_j] == iota) & (best_s < 0.0) & alive

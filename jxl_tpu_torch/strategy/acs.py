@@ -9,10 +9,11 @@ block, 4-8 the 16..256 merges in the strided coefficient mapping).
 
 Ported here: the decoder's pieces for every strategy id (`steps_field`,
 `effective_multiplier`, `reassemble_merged`), and the encoder's search
-with the proxy rate model (efforts up to 7: the sub-8 search and the
-16/32/64 merge rungs) under every strategy, the thesis's homogeneity hooks
-included (`strategy/homogeneity.py`). The measured-rate (e8+) model is not
-ported yet.
+under every strategy, the thesis's homogeneity hooks included
+(`strategy/homogeneity.py`): the proxy rate model up to effort 7 (the
+sub-8 search and the 16/32/64 merge rungs), and from effort 8 the
+measured rate of the two-pass model (`_rate_bits_lut`, the 128 and 256
+rungs at e8 and e9).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jxl_tpu_torch.entropy.tokens import tokenize, zigzag_map
 from jxl_tpu_torch.strategy.homogeneity import (
     ACS_DCT,
     ACS_DCT4X4,
@@ -98,6 +100,25 @@ def _rate_bits(q: torch.Tensor, dims) -> torch.Tensor:
     """Rate proxy in bits over the given dims (q: integer quantised coeffs)."""
     aq = torch.abs(q).to(torch.float32)
     return torch.sum(2.0 * log2_1p_fast(aq) + NONZERO_BITS * (aq > 0).to(torch.float32), dim=dims)
+
+
+def lut_bits(q: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Measured bits of each coefficient of q [..., 8, 8]: lut[..., sym]
+    with sym the hybrid-uint token of zigzag(q), lut [..., 8, 8, A] of
+    q's rank plus one, broadcasting against q. A gather: the reference's
+    one-hot product over A has this as its single nonzero term, so the
+    float is the same, without an [..., A] temporary."""
+    sym = tokenize(zigzag_map(q))[0].to(torch.int64)
+    return torch.gather(lut.expand(*q.shape, lut.shape[-1]), -1, sym[..., None])[..., 0]
+
+
+def _rate_bits_lut(q: torch.Tensor, bit_lut: torch.Tensor, dims) -> torch.Tensor:
+    """Measured rate in bits over the given dims: per coefficient, the rANS
+    cost of its token under the image's first-pass histograms plus its
+    mantissa bits. bit_lut [3, 8, 8, A] (`encode._bits_lut_grid`); q
+    [3, ..., 8, 8], the LUT broadcasting over the middle axes."""
+    lut = bit_lut.reshape((3,) + (1,) * (q.ndim - 3) + tuple(bit_lut.shape[1:]))
+    return torch.sum(lut_bits(q, lut), dim=dims)
 
 
 def _mask_dc_slot(storage: torch.Tensor) -> torch.Tensor:
@@ -183,11 +204,14 @@ def _repeat2(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def search_acs(
     blocks: torch.Tensor, planes: torch.Tensor, distance, *, effort: int, qf_mul: torch.Tensor,
-    hook_a: int = 0, hook_b: bool = False, hooka_eps: float = 0.02,
+    hook_a: int = 0, hook_b: bool = False, hooka_eps: float = 0.02, bit_lut: torch.Tensor | None = None,
 ):
-    """AC-strategy search (proxy rate). Returns (acs [nby, nbx] int64, raw
-    storage [3, nby, nbx, 8, 8] float32 of the selected strategies, qsteps
+    """AC-strategy search. Returns (acs [nby, nbx] int64, raw storage
+    [3, nby, nbx, 8, 8] float32 of the selected strategies, qsteps
     [3, nby, nbx, 8, 8] step field).
+
+    Candidates are costed by the proxy rate, or with bit_lut [3, 8, 8, A]
+    (efforts >= 8, `encode._bits_lut_grid`) by the measured rate.
 
     The thesis's hooks (`codec.config.Strategy`):
     - hook A: where the 8x8-level argmin picked plain DCT, take the
@@ -197,10 +221,13 @@ def search_acs(
       override, as the C++ stores it.
     - hook B: scale every sub-8 and merge candidate cost by 0.8 times the
       homogeneity factor of the candidate's top-left block."""
-    if effort >= 8:
-        raise NotImplementedError(
-            "effort >= 8 (measured-rate two-pass model and the 128/256 merge rungs) is not ported yet"
-        )
+    if bit_lut is None:
+        rate = _rate_bits
+    else:
+
+        def rate(q, dims):
+            return _rate_bits_lut(q, bit_lut, dims)
+
     dev = blocks.device
     nby, nbx = blocks.shape[1], blocks.shape[2]
     sub8_steps = sub8_step_grids(distance, device=dev)
@@ -213,7 +240,7 @@ def search_acs(
     for sid in range(4):
         steps = sub8_steps[sid][:, None, None] * qf_mul[None, :, :, None, None]
         qc = torch.round(sub8[sid] / steps).to(torch.int32)
-        c = _rate_bits(qc, (0, -2, -1)) * ENTROPY_MUL[sid]
+        c = rate(qc, (0, -2, -1)) * ENTROPY_MUL[sid]
         if hook_b:
             c = c * 0.8 * bfac
         costs.append(c)
@@ -242,7 +269,7 @@ def search_acs(
         step_slots = merged_step_slots(distance, n, device=dev)[:, None, None]
         gmul = group_min_multiplier(qf_mul, k)[: gby * k : k, : gbx * k : k]
         qslots = torch.round(slots / (step_slots * gmul[None, :, :, None, None, None, None])).to(torch.int32)
-        cost_m = _rate_bits(qslots, (0, -4, -3, -2, -1)) * ENTROPY_MUL[sid]
+        cost_m = rate(qslots, (0, -4, -3, -2, -1)) * ENTROPY_MUL[sid]
         if hook_b:
             cost_m = cost_m * 0.8 * bfac[: gby * k : k, : gbx * k : k]
         # group's current cost = sum of its selected per-block costs; the

@@ -190,3 +190,72 @@ def test_codec_on_card_matches_cpu(dev):
     a = decode_bytes(data, device=dev).astype(np.int32)
     b = decode_bytes(data, device="cpu").astype(np.int32)
     assert np.abs(a - b).max() <= 1
+
+
+def _lossless_stream(dev, h: int = 64, w: int = 96, seed: int = 7):
+    """The d = 0 token stream of a uniform-noise image (most residual
+    tokens carry 1-2 mantissa bytes, past the default mantissa cap), with
+    its kernel rows, on `dev`."""
+    from jxl_tpu_torch.codec.encode import entropy_inputs, pick_lanes
+    from jxl_tpu_torch.codec.layout import lossless_layout
+    from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens
+
+    img = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    lanes = pick_lanes(3 * h * w, 256)
+    lay = lossless_layout(h, w, lanes)
+    token, _nb, mant, _p, q_sorted = lossless_tokens(torch.from_numpy(img).to(dev), height=h, width=w, distance=0.0)
+    tokp, mantp, rows, _freq = entropy_inputs(token, mant, ll_step_ctx(lay, q_sorted), lay, lanes)
+    return tokp, mantp, rows, lay, lanes
+
+
+def test_lossless_stream_kernels_match_plain(dev):
+    """B3 on a d = 0 stream relaunches with grown caps and equals its plain
+    version at those caps; B1 decodes it in two phases (the activity-map
+    split) equal to its plain version and to the encoded values."""
+    tokp, mantp, rows, lay, lanes = _lossless_stream(dev)
+    T, t_a = lay["T"], lay["t_a"]
+    capw, capm = enc_caps(T, lanes)
+    n0 = encode_grouped_cuda.launches
+    enc_k = encode_grouped_cuda(tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm)
+    assert encode_grouped_cuda.launches == n0 + 2 and enc_k[1].shape[1] > capm
+    enc_p = encode_grouped_plain(tokp, mantp, rows, T=T, lanes=lanes, capw=enc_k[0].shape[1], capm=enc_k[1].shape[1])
+    for a, b in zip(enc_k, enc_p):
+        assert torch.equal(a.cpu(), b.cpu())
+    G = lanes // 128
+    wg, mg = _front(enc_k[0], enc_k[3]), _front(enc_k[1], enc_k[4])
+    ptr0 = torch.zeros((2, G), dtype=torch.int32, device=dev)
+    out = {}
+    for name, fn in (("kernel", decode_grouped_cuda), ("plain", decode_grouped)):
+        va, st, p = fn(wg, mg, enc_k[2], rows[:t_a].contiguous(), ptr0, T=t_a, lanes=lanes)
+        vb, st2, p2 = fn(wg, mg, st, rows[t_a:].contiguous(), p, T=T - t_a, lanes=lanes)
+        out[name] = (va, st, p, vb, st2, p2)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert torch.equal(a.cpu(), b.cpu())
+    nbits = torch.where(tokp >= 32, tokp - 27, 0)
+    expect = torch.where(tokp >= 32, (1 << nbits) + mantp, tokp)
+    assert torch.equal(torch.cat([out["kernel"][0], out["kernel"][3]]), expect)
+
+
+def test_modular_row_on_card(dev):
+    """The modular family on the card: a d = 0 encode byte-identical to the
+    CPU's and exact; a modular row decoded through B2 (twice, B1 never)
+    with values equal to the plain path's on the CPU and equal pixels."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container
+    from jxl_tpu_torch.codec.decode import decode_bytes, decode_bytes_grid_stacked, decode_values_grid
+    from jxl_tpu_torch.codec.encode import _modular_grid_async, encode_image, encoder_knobs
+
+    img = _card_image()
+    img[20:60, 30:90] = (200, 40, 90)
+    data = encode_image(img, CodecConfig(distance=0.0), device=dev)
+    assert data == encode_image(img, CodecConfig(distance=0.0), device="cpu")
+    np.testing.assert_array_equal(decode_bytes(data, device=dev), img)
+    rgb_t = torch.from_numpy(img).to(dev)
+    datas = _modular_grid_async(rgb_t, CodecConfig(), [0.5, 1.5, 4.0], "", encoder_knobs())()
+    b0, s0 = decode_grouped_batched_cuda.launches, decode_grouped_cuda.launches
+    out = decode_bytes_grid_stacked(datas, device=dev)
+    torch.cuda.synchronize()
+    assert decode_grouped_batched_cuda.launches - b0 == 2 and decode_grouped_cuda.launches == s0
+    streams = [read_container(d) for d in datas]
+    assert torch.equal(decode_values_grid(streams, dev).cpu(), decode_values_grid(streams, "cpu"))
+    assert torch.equal(out.cpu(), decode_bytes_grid_stacked(datas, device="cpu"))

@@ -9,7 +9,7 @@
   points carry different EPF decisions) decodes with value streams
   bit-exact against the reference's, pixels within 1 LSB of the reference's
   grid decode and identical to the port's per-stream decodes;
-- (c) the reference's None contract and the raise on lossless rows;
+- (c) the reference's None contract, and uniform lossless rows batching;
 - (d) the port's grid and batch encodes are byte-identical to its
   `encode_image`, with the reference's distance rules;
 - (e) port grid containers against the reference's: bytes within 0.5%,
@@ -223,10 +223,16 @@ def test_grid_decode_none_contract():
 
 
 def test_grid_decode_lossless_row_raises():
-    img = make_test_image(16, 24, seed=2)
-    datas = [jax_encode(img, JaxConfig(distance=0.0)), jax_encode(img[::-1].copy(), JaxConfig(distance=0.0))]
-    with pytest.raises(NotImplementedError):
-        td.decode_bytes_grid_stacked(datas, device="cpu")
+    """A uniform row of the reference's d = 0 containers (no palette) no
+    longer raises: it decodes through the batched scan to exact pixels."""
+    from jxl_tpu.codec.encode import _modular_async
+
+    imgs = [make_test_image(16, 24, seed=2), make_test_image(16, 24, seed=2)[::-1].copy()]
+    datas = [_modular_async(im, JaxConfig(distance=0.0))() for im in imgs]
+    out = td.decode_bytes_grid_stacked(datas, device="cpu")
+    assert out.shape == (2, 16, 24, 3)
+    for im, o in zip(imgs, out):
+        np.testing.assert_array_equal(np_(o), im)
 
 
 # ---- (d) grid and batch encodes against encode_image
@@ -255,10 +261,18 @@ def test_grid_and_batch_encodes_match_encode_image():
 
 
 def test_grid_encode_refuses_unported_modes():
+    """What the grid once refused now encodes: a modular candidate picks its
+    family per point as the reference does, modular=False keeps VarDCT,
+    and e8 runs."""
     flat = np.zeros((32, 48, 3), np.uint8)
     flat[8:24, 8:40] = (200, 40, 90)
-    with pytest.raises(NotImplementedError):
-        te.encode_image_grid(flat, CodecConfig(), [1.0, 2.0], device="cpu")
-    assert len(te.encode_image_grid(flat, CodecConfig(modular=False), [1.0, 2.0], device="cpu")) == 2
-    with pytest.raises(NotImplementedError):
-        te.encode_image_grid(make_test_image(32, 48), CodecConfig(effort=8), [1.0], device="cpu")
+    picked = te.encode_image_grid(flat, CodecConfig(), [1.0, 2.0], device="cpu")
+    ref = jax_encode_grid(flat, JaxConfig(), [1.0, 2.0])
+    modes = [read_container(b).header.lossless for b in picked]
+    assert modes == [read_container(b).header.lossless for b in ref] and modes[0]
+    for d, b in zip([1.0, 2.0], picked):
+        assert b == te.encode_image(flat, CodecConfig(distance=d), device="cpu")
+    vardct = te.encode_image_grid(flat, CodecConfig(modular=False), [1.0, 2.0], device="cpu")
+    assert not any(read_container(b).header.lossless for b in vardct)
+    e8 = te.encode_image_grid(make_test_image(32, 48), CodecConfig(effort=8), [1.0], device="cpu")
+    assert read_container(e8[0]).header.effort == 8

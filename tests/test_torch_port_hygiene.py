@@ -1,6 +1,6 @@
 """Port hygiene: jxl_tpu_torch never imports jax, its copied constants equal
-the reference's, and the parts not ported yet raise NotImplementedError
-rather than computing something else."""
+the reference's, and what is not ported yet (JXTS striped containers)
+raises NotImplementedError rather than computing something else."""
 
 import os
 import pkgutil
@@ -12,6 +12,9 @@ import pytest
 import torch
 
 import jxl_tpu_torch
+from jxl_tpu.codec import encode as jenc
+from jxl_tpu.codec import layout as jly
+from jxl_tpu.codec import lossless as jll
 from jxl_tpu.core import xyb as jx
 from jxl_tpu.entropy import cluster as jcl
 from jxl_tpu.entropy import grouped as jg
@@ -23,6 +26,9 @@ from jxl_tpu.transforms import dct as jd
 from jxl_tpu.transforms import epf as je
 from jxl_tpu.transforms import quant as jq
 
+from jxl_tpu_torch.codec import encode as tenc
+from jxl_tpu_torch.codec import layout as tly
+from jxl_tpu_torch.codec import lossless as tll
 from jxl_tpu_torch.core import xyb as tx
 from jxl_tpu_torch.entropy import cluster as tcl
 from jxl_tpu_torch.entropy import grouped as tg
@@ -88,6 +94,9 @@ def test_numpy_constants_equal():
     )
     assert (tr.RANS_PRECISION, tr.RANS_M, tr.RANS_L) == (jr.RANS_PRECISION, jr.RANS_M, int(jr.RANS_L))
     assert (tg.GROUP, tg.MAX_NBYTES) == (jg.GROUP, jg.MAX_NBYTES)
+    assert tll._mod_coefs() == jll._mod_coefs()
+    assert tenc.EncoderKnobs().mod_rule == jenc._mode_rule()
+    assert (tly.LL_Q, tly.LL_EDGES) == (jly.LL_Q, jly.LL_EDGES)
 
 
 @pytest.mark.parametrize("d", [0.05, 0.5, 1.0, 3.0, 14.0])
@@ -108,73 +117,52 @@ def _probe_image():
     return make_test_image(32, 48, seed=1)
 
 
-@pytest.mark.parametrize(
-    "config",
-    [
-        dict(distance=0.0),
-        dict(distance=1.0, effort=8),
-        dict(distance=1.0, effort=9),
-    ],
-)
-def test_unported_encode_modes_raise(config):
-    from jxl_tpu_torch.codec.config import CodecConfig
-    from jxl_tpu_torch.codec.encode import encode_image
-
-    with pytest.raises(NotImplementedError):
-        encode_image(_probe_image(), CodecConfig(**config), device="cpu")
-
-
 def test_modular_candidate_raises_unless_disabled():
-    """Flat synthetic content is a modular candidate: the port raises
-    instead of silently skipping the reference's modular encode; with
-    modular=False the VarDCT encode runs."""
+    """Flat synthetic content is a modular candidate: the port keeps what
+    jxl_tpu keeps (here the modular container, byte for byte), and with
+    modular=False the VarDCT encode."""
+    from jxl_tpu.codec.config import CodecConfig as JaxConfig
+    from jxl_tpu.codec.encode import encode_image as jax_encode
+
     from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container
     from jxl_tpu_torch.codec.decode import decode_bytes
     from jxl_tpu_torch.codec.encode import encode_image
 
     img = np.zeros((32, 48, 3), np.uint8)
     img[8:24, 8:40] = (200, 40, 90)
-    with pytest.raises(NotImplementedError):
-        encode_image(img, CodecConfig(distance=1.0), device="cpu")
+    data = encode_image(img, CodecConfig(distance=1.0), device="cpu")
+    assert data == jax_encode(img, JaxConfig(distance=1.0))
+    assert read_container(data).header.lossless
     data = encode_image(img, CodecConfig(distance=1.0, modular=False), device="cpu")
+    assert not read_container(data).header.lossless
     assert decode_bytes(data, device="cpu").shape == img.shape
 
 
 def test_unported_entry_points_raise():
     """What stays unported behind the ported entry points: JXTS striped
-    containers, uniform lossless grid rows, efforts 8-9 in the grid and
-    batch encodes."""
-    from jxl_tpu.codec.config import CodecConfig as JaxConfig
-    from jxl_tpu.codec.encode import encode_image as jax_encode
-
+    containers."""
     from jxl_tpu_torch.codec import decode as tdec
-    from jxl_tpu_torch.codec import encode as tenc
-    from jxl_tpu_torch.codec.config import CodecConfig
 
     with pytest.raises(NotImplementedError):
         tdec.decode_bytes(b"JXTS" + b"\0" * 32, device="cpu")
     with pytest.raises(NotImplementedError):
         tdec.decode_bytes_grid_stacked([b"JXTS" + b"\0" * 32] * 2, device="cpu")
-    lossless = jax_encode(make_test_image(16, 24, seed=2), JaxConfig(distance=0.0))
-    with pytest.raises(NotImplementedError):
-        tdec.decode_bytes_grid_stacked([lossless, lossless], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tenc.encode_image_grid(_probe_image(), CodecConfig(effort=8), [1.0, 2.0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tenc.encode_images_batched_async([_probe_image()], CodecConfig(effort=9), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tenc.encode_images([(_probe_image(), CodecConfig(distance=0.0), "")], device="cpu")
 
 
 def test_lossless_container_decode_raises():
+    """The reference's d = 0 container decodes in the port to the same
+    (exact) pixels as in the reference."""
     from jxl_tpu.codec.config import CodecConfig as JaxConfig
+    from jxl_tpu.codec.decode import decode_bytes as jax_decode
     from jxl_tpu.codec.encode import encode_image as jax_encode
 
     from jxl_tpu_torch.codec.decode import decode_bytes
 
-    data = jax_encode(make_test_image(16, 24, seed=2), JaxConfig(distance=0.0))
-    with pytest.raises(NotImplementedError):
-        decode_bytes(data, device="cpu")
+    img = make_test_image(16, 24, seed=2)
+    data = jax_encode(img, JaxConfig(distance=0.0))
+    np.testing.assert_array_equal(decode_bytes(data, device="cpu"), np.asarray(jax_decode(data)))
+    np.testing.assert_array_equal(decode_bytes(data, device="cpu"), img)
 
 
 def test_device_is_explicit():
