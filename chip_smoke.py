@@ -51,7 +51,21 @@ and no result line is printed:
 5. times:  warm single-image encode and decode throughput: e7, e8, e9 at
            d=1 on the bench image, d=0 of the bench image and synth02.png,
            modular-lossy d=1 of synth02.png;
-5b. times: warm grid encode and grid decode throughput, 32 points at d=1.
+5b. times: warm grid encode and grid decode throughput, 32 points at d=1;
+6. the thesis A/B sweep, in process through `python -m jxl_tpu_torch bench`:
+           the 12 images of test_images/synth (512x768) x the 10 sweep
+           distances x BASELINE and HOMOGENEITY_PARTITIONING at e7 (240
+           points: encode, decode, metric battery, CSVs); every CSV header
+           equal to the schema, 120 comparison rows per strategy, the
+           summary's MEAN row, B3, B2 and B1 all launched; each image's d=1
+           point re-decoded on the CPU and re-scored there by the plain path,
+           the CSV's metrics within the bars, its PSNR equal to psnr(); the
+           sweep's wall time, per-point medians from timings.csv and the
+           battery's time on one 10-point row, card against CPU;
+6b. the legacy stages and the effort axis: synth02.png at d in {0, 1, 3} x
+           e5-e9 with --decompress --compare-images; d = 0 exact (PSNR inf),
+           the decompressed PNGs (stdlib writer) read back equal to the
+           decoded pixels.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -61,6 +75,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -77,7 +92,18 @@ BPP_TOL_REL = 0.005
 # the reference harness's RD-sweep distance row (jxl_tpu/bench/sweep.py)
 RUST_DISTANCES = (0.5, 1.0, 1.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
 GRID_BATCH = 32  # points per grid row that bench.py times
-SYNTH02 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_images", "synth", "synth02.png")
+REPO = os.path.dirname(os.path.abspath(__file__))
+SYNTH02 = os.path.join(REPO, "test_images", "synth", "synth02.png")
+SWEEP_DIR = os.path.join(REPO, "benchmarks", "chip_smoke")  # phase 6 / 6b output (git-ignored), emptied first
+
+# the card's metric battery against the plain path on the CPU: the bars of
+# tests/test_torch_metrics.py (port vs reference), held here card vs CPU
+BAR_MSE_REL = 1e-6
+BAR_PSNR_DB = 1e-5
+BAR_SSIM_ABS = 1e-5
+BAR_BA_MAX_REL = 3e-4
+BAR_BA_P3_REL = 1e-4
+BAR_S2_ABS = 0.05
 
 
 def bench_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
@@ -137,58 +163,6 @@ def front_packed(torch, bucket, counts):
     for g in range(G):
         out[g, : c[g]] = bucket[g, cap - c[g] :]
     return out
-
-
-def read_png_rgb8(path: str) -> np.ndarray:
-    """An 8-bit RGB, non-interlaced PNG -> u8 [H, W, 3], with the standard
-    library's zlib and numpy (the card's machine has no image library)."""
-    import struct
-    import zlib
-
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    o, idat, hdr = 8, [], None
-    while o < len(data):
-        (n,) = struct.unpack(">I", data[o : o + 4])
-        kind, body = data[o + 4 : o + 8], data[o + 8 : o + 8 + n]
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        o += 12 + n
-    w, h, depth, ctype, _comp, _filt, interlace = hdr
-    if (depth, ctype, interlace) != (8, 2, 0):
-        raise ValueError(f"{path}: only 8-bit RGB non-interlaced PNGs are read here")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    out = np.zeros((h, 3 * w), np.int64)
-    prev = np.zeros(3 * w, np.int64)
-    for y in range(h):
-        f, line = int(raw[y, 0]), raw[y, 1:].astype(np.int64)
-        if f == 0:
-            cur = line
-        elif f == 1:  # Sub: a running sum along the row, per channel
-            cur = np.cumsum(line.reshape(w, 3), axis=0).reshape(-1) % 256
-        elif f == 2:  # Up
-            cur = (line + prev) % 256
-        else:  # Average / Paeth: each byte depends on the one reconstructed left of it
-            ln, up, cur = line.tolist(), prev.tolist(), [0] * (3 * w)
-            for i in range(3 * w):
-                a = cur[i - 3] if i >= 3 else 0
-                b = up[i]
-                c = up[i - 3] if i >= 3 else 0
-                if f == 3:
-                    pred = (a + b) // 2
-                else:
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[i] = (ln[i] + pred) % 256
-            cur = np.asarray(cur, np.int64)
-        out[y] = cur
-        prev = cur
-    return out.reshape(h, w, 3).astype(np.uint8)
 
 
 def acs_ids(stream, dev) -> list:
@@ -264,6 +238,216 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
     )
 
 
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def metrics_within_bars(got: dict, want: dict, what: str) -> dict:
+    """Raise unless battery dict `got` is within the bars of `want`;
+    returns the differences (relative for MSE and Butteraugli)."""
+    rel = lambda k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)  # noqa: E731
+    diff = {
+        "mse": rel("mse") if want["mse"] > 0 else abs(got["mse"]),
+        "psnr": 0.0 if got["psnr"] == want["psnr"] else abs(got["psnr"] - want["psnr"]),
+        "ssim": abs(got["ssim"] - want["ssim"]),
+        "ms_ssim": abs(got["ms_ssim"] - want["ms_ssim"]),
+        "butteraugli": rel("butteraugli") if want["butteraugli"] > 0 else abs(got["butteraugli"]),
+        "butteraugli_pnorm": rel("butteraugli_pnorm") if want["butteraugli_pnorm"] > 0 else abs(got["butteraugli_pnorm"]),
+        "ssimulacra2": abs(got["ssimulacra2"] - want["ssimulacra2"]),
+    }
+    bars = {
+        "mse": BAR_MSE_REL, "psnr": BAR_PSNR_DB, "ssim": BAR_SSIM_ABS, "ms_ssim": BAR_SSIM_ABS,
+        "butteraugli": BAR_BA_MAX_REL, "butteraugli_pnorm": BAR_BA_P3_REL, "ssimulacra2": BAR_S2_ABS,
+    }
+    for k, bar in bars.items():
+        if not diff[k] <= bar:
+            raise AssertionError(f"{what}: {k} {got[k]!r} vs {want[k]!r} (difference {diff[k]:.3g} > bar {bar})")
+    return diff
+
+
+def run_bench_cli(argv: list, log: str) -> float:
+    """`python -m jxl_tpu_torch bench` in this process, its per-point lines
+    into `log`; returns the wall seconds (ending in a synchronize)."""
+    import contextlib
+
+    import torch
+
+    from jxl_tpu_torch.cli.main import main as cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"bench {' '.join(argv)} returned {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
+    """6: the thesis's A/B sweep through the CLI at the corpus's own size
+    (12 images of 512x768 x RUST_DISTANCES x BASELINE and
+    HOMOGENEITY_PARTITIONING at e7); the CSVs against the schema, the
+    kernels' launches, every image's d = 1 point re-decoded and re-scored
+    on the CPU, the times. Returns the sweep's (B3, B1, B2) launches."""
+    from jxl_tpu_torch.bench.csv_schema import COMPARISON_DIFF_HEADER, COMPARISON_RESULT_HEADER, IMAGE_FILE_DATA_HEADER
+    from jxl_tpu_torch.bench.sweep import TIMINGS_HEADER
+    from jxl_tpu_torch.codec.decode import decode_file
+    from jxl_tpu_torch.core.io import read_png_rgb8
+    from jxl_tpu_torch.metrics.battery import _battery_grid, metric_battery, metric_battery_grid_async
+
+    strategies = ("BASELINE", "HOMOGENEITY_PARTITIONING")
+    images = sorted(os.listdir(os.path.join(REPO, "test_images", "synth")))
+    bench_dir = os.path.join(SWEEP_DIR, "sweep")
+    argv = [
+        "bench", "--device", str(dev), "--test-image-dir", os.path.join(REPO, "test_images"),
+        "--benchmark-dir", bench_dir, "--distances", *map(str, RUST_DISTANCES), "--efforts", "7",
+        "--strategy", strategies[0], "--compare-to", strategies[1],
+    ]
+    reset_counts()
+    wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "sweep.log"))
+    ne, n1, n2 = read_counts()
+    n_pts = len(images) * len(RUST_DISTANCES)
+    if ne < 2 * n_pts or n1 < 1 or n2 < 2:
+        raise AssertionError(f"sweep launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= {2 * n_pts}, >= 1, >= 2)")
+    base = os.path.join(bench_dir, "0", "synth")
+    timings = []
+    for strat in strategies:
+        res = os.path.join(base, strat, "results")
+        for name, header, n_rows in (
+            ("results.csv", IMAGE_FILE_DATA_HEADER, len(images)),
+            ("comparisons.csv", COMPARISON_RESULT_HEADER, n_pts),
+            ("timings.csv", TIMINGS_HEADER, n_pts),
+        ):
+            rows = read_csv(os.path.join(res, name))
+            if rows[0] != header or len(rows) - 1 != n_rows:
+                raise AssertionError(f"{strat}/{name}: header {rows[0]} with {len(rows) - 1} rows (want {n_rows})")
+        timings += [r for r in read_csv(os.path.join(res, "timings.csv"))[1:] if r[8] == "1"]
+    diffs = read_csv(os.path.join(base, "comparison_diffs.csv"))
+    summary = read_csv(os.path.join(base, "summary.csv"))
+    if diffs[0] != COMPARISON_DIFF_HEADER or len(diffs) - 1 != n_pts:
+        raise AssertionError(f"comparison_diffs.csv: {len(diffs) - 1} rows")
+    if summary[0] != COMPARISON_DIFF_HEADER or len(summary) != 2 or summary[1][0] != "MEAN":
+        raise AssertionError(f"summary.csv: {summary}")
+    mean = dict(zip(COMPARISON_DIFF_HEADER, summary[1]))
+    print(
+        f"[6 sweep] {len(images)} images x {len(RUST_DISTANCES)} distances x {len(strategies)} strategies = "
+        f"{2 * n_pts} points in {wall_s:.1f} s on {kind} ({smi}); launches B3 {ne}, B2 {n2}, B1 {n1}; CSV headers "
+        f"equal the schema, {n_pts} comparison rows per strategy, summary MEAN: bytes "
+        f"{float(mean['Diff Compressed File Size']):+.1f}, PSNR {float(mean['Diff PSNR']):+.4f} dB, SSIMULACRA2 "
+        f"{float(mean['Diff SSIMULACRA2']):+.4f}"
+    )
+
+    # every image's d = 1 point: the .jxt re-decoded on the CPU, the battery re-run there
+    worst, lsb_max = {}, 0
+    comps = {r[1]: r for r in read_csv(os.path.join(base, strategies[0], "results", "comparisons.csv"))[1:]}
+    for name in images:
+        stem = os.path.splitext(name)[0]
+        row = comps[f"{stem}-1.0-7.jxt"]
+        jxt = os.path.join(base, strategies[0], "output", row[1])
+        orig = read_png_rgb8(os.path.join(REPO, "test_images", "synth", name))
+        card_px = decode_file(jxt, device=dev)
+        cpu_px = decode_file(jxt, device="cpu")
+        lsb = int(np.abs(card_px.astype(np.int32) - cpu_px).max())
+        lsb_max = max(lsb_max, lsb)
+        if lsb > 1:
+            raise AssertionError(f"{row[1]}: card vs CPU pixels differ by {lsb} LSB")
+        csv_m = dict(zip(("mse", "psnr", "ssim", "ms_ssim", "butteraugli", "butteraugli_pnorm", "ssimulacra2"), map(float, row[10:17])))
+        # the battery is held on the pixels the card scored; a 1-LSB decode
+        # difference would otherwise show as a metric difference
+        cpu_m = metric_battery(orig, card_px, device="cpu")
+        for k, v in metrics_within_bars(csv_m, cpu_m, row[1]).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if abs(csv_m["psnr"] - psnr(orig, card_px)) > BAR_PSNR_DB:
+            raise AssertionError(f"{row[1]}: PSNR column {csv_m['psnr']} vs {psnr(orig, card_px)} (float64)")
+    print(
+        f"[6 d=1 points] {len(images)} .jxt re-decoded on the CPU (card vs CPU pixels max |d| {lsb_max} LSB), battery "
+        "re-run there: card vs CPU max " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; PSNR column equals psnr() within 1e-5 dB"
+    )
+
+    # times: per point from timings.csv (Warm == 1), the battery on one row
+    med = [float(np.median([float(r[i]) for r in timings])) for i in (3, 4, 5)]
+    stem0 = os.path.splitext(images[0])[0]
+    orig0 = read_png_rgb8(os.path.join(REPO, "test_images", "synth", images[0]))
+    stack = torch.stack([
+        torch.from_numpy(decode_file(os.path.join(base, strategies[0], "output", f"{stem0}-{d}-7.jxt"), device=dev)).to(dev)
+        for d in RUST_DISTANCES
+    ])
+    orig0_t = torch.from_numpy(orig0).to(dev)
+    bat_ms = cuda_ms(torch, lambda: _battery_grid(orig0_t, stack), 10)
+    card_rows = metric_battery_grid_async(orig0_t, stack)()
+    t0 = time.perf_counter()
+    cpu_rows = metric_battery_grid_async(orig0, stack.cpu(), device="cpu")()
+    bat_cpu_ms = 1e3 * (time.perf_counter() - t0)
+    for d, c, p in zip(RUST_DISTANCES, card_rows, cpu_rows):
+        metrics_within_bars(c, p, f"{stem0} d={d} row battery")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _battery_grid(orig0_t, stack)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(
+        f"[6 times] {kind} ({smi}): sweep wall {wall_s:.1f} s for {2 * n_pts} points; per point (median of "
+        f"{len(timings)} Warm == 1 rows): encode {med[0] * 1e3:.1f} ms, decode {med[1] * 1e3:.1f} ms, metrics "
+        f"{med[2] * 1e3:.1f} ms; battery of one {len(RUST_DISTANCES)}-point row ({stem0}): card {bat_ms:.2f} ms "
+        f"(CUDA events, 10 runs, peak {peak_gb:.2f} GB), plain path on the CPU {bat_cpu_ms:.0f} ms (one call); "
+        "row within the bars card vs CPU"
+    )
+    return ne, n1, n2
+
+
+def phase_legacy(torch, dev, reset_counts, read_counts):
+    """6b: the legacy stages and the effort axis on synth02.png: d in
+    {0, 1, 3} x e5-e9 with --decompress --compare-images; d = 0 exact (PSNR
+    inf), the decompressed PNGs read back equal to the decoded pixels.
+    Returns the (B3, B1, B2) launches."""
+    from jxl_tpu_torch.bench.sweep import DECOMPRESSION_HEADER
+    from jxl_tpu_torch.codec.decode import decode_file
+    from jxl_tpu_torch.core.io import read_png_rgb8
+
+    img_dir = os.path.join(SWEEP_DIR, "legacy_images")
+    os.makedirs(os.path.join(img_dir, "synth02"))
+    shutil.copy(SYNTH02, os.path.join(img_dir, "synth02", "synth02.png"))
+    bench_dir = os.path.join(SWEEP_DIR, "legacy")
+    dists, efforts = (0.0, 1.0, 3.0), (5, 6, 7, 8, 9)
+    argv = [
+        "bench", "--device", str(dev), "--test-image-dir", img_dir, "--benchmark-dir", bench_dir,
+        "--distances", *map(str, dists), "--efforts", *map(str, efforts), "--decompress", "--compare-images",
+    ]
+    reset_counts()
+    wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "legacy.log"))
+    ne, n1, n2 = read_counts()
+    base = os.path.join(bench_dir, "0", "synth02", "BASELINE")
+    comps = read_csv(os.path.join(base, "results", "comparisons.csv"))[1:]
+    dec = read_csv(os.path.join(base, "results", "decompressed.csv"))
+    n_pts = len(dists) * len(efforts)
+    if len(comps) != n_pts or dec[0] != DECOMPRESSION_HEADER or len(dec) - 1 != n_pts:
+        raise AssertionError(f"legacy sweep: {len(comps)} comparison rows, {len(dec) - 1} decompressed rows")
+    if len(os.listdir(os.path.join(base, "diffs"))) != n_pts:
+        raise AssertionError("legacy sweep: missing diff images")
+    orig = read_png_rgb8(SYNTH02)
+    for r in comps:
+        d = float(r[2])
+        px = decode_file(os.path.join(base, "output", r[1]), device=dev)
+        back = read_png_rgb8(os.path.join(base, "decompressed", r[1][: -len(".jxt")] + ".png"))
+        if not np.array_equal(back, px):
+            raise AssertionError(f"{r[1]}: the decompressed PNG does not read back as the decoded pixels")
+        if d == 0.0 and not (r[11] == "inf" and float(r[10]) == 0.0 and np.array_equal(px, orig)):
+            raise AssertionError(f"{r[1]}: d = 0 is not exact (MSE {r[10]}, PSNR {r[11]})")
+    by_e = {e: [r for r in comps if int(r[3]) == e] for e in efforts}
+    print(
+        f"[6b legacy] synth02 d in {dists} x e{efforts[0]}-e{efforts[-1]}: {n_pts} points in {wall_s:.1f} s; launches "
+        f"B3 {ne}, B2 {n2}, B1 {n1}; d = 0 exact (PSNR inf) at every effort; {n_pts} decompressed PNGs read back equal "
+        "to the decoded pixels; " + "; ".join(
+            f"e{e}: " + ", ".join(f"d={float(r[2]):g} {r[5]} B {float(r[11]):.2f} dB" for r in rows) for e, rows in by_e.items()
+        )
+    )
+    return ne, n1, n2
+
+
 def main() -> int:
     import torch
 
@@ -306,6 +490,7 @@ def main() -> int:
     from jxl_tpu_torch.codec.layout import lossless_layout, padded_layout, token_layout
     from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens, modular_steps
     from jxl_tpu_torch.core.device import resolve_device
+    from jxl_tpu_torch.core.io import read_png_rgb8
     from jxl_tpu_torch.cuda_build import BUILD_LOGS, build
     from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
     from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda
@@ -417,7 +602,7 @@ def main() -> int:
     )
 
     # ---- 3c. B3 and B1 vs plain on the modular shapes (d = 0 token streams)
-    synth = read_png_rgb8(SYNTH02)
+    synth = read_png_rgb8(SYNTH02)  # stdlib zlib + numpy: the card's machine has no image library
     noise = np.random.default_rng(0).integers(0, 256, img.shape, dtype=np.uint8)
     ll_kernels = {}
     for name, im in (("bench", img), ("synth02", synth), ("noise", noise)):
@@ -649,6 +834,16 @@ def main() -> int:
         f"min {1e3 * min(genc_ts):.1f} ms), decode {gmp / np.median(gdec_ts):.2f} MP/s "
         f"(median {1e3 * np.median(gdec_ts):.1f} ms, min {1e3 * min(gdec_ts):.1f} ms), {reps} warm runs"
     )
+
+    # ---- 6. the thesis A/B sweep through the CLI; 6b. legacy stages, effort axis
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    os.makedirs(SWEEP_DIR)
+    for phase in (
+        lambda: phase_sweep(torch, dev, kind, smi, reset_counts, read_counts),
+        lambda: phase_legacy(torch, dev, reset_counts, read_counts),
+    ):
+        ne, n1, n2 = phase()
+        n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
 
     kernels = [
         {

@@ -12,9 +12,13 @@ The package imports torch and numpy, never jax: the numpy-only contract
 pieces (constants, tables, layouts, the container) are copies, held equal
 to the reference by the tests.
 
-Covered so far: single-image lossy VarDCT encode and decode at efforts
-1-7 with the BASELINE strategy (`codec.encode.encode_image`,
-`codec.decode.decode_bytes`).
+Covered: the codec (lossy VarDCT at efforts 1-9 under every strategy, the
+modular family: d = 0 lossless, modular-lossy, palette, the
+VarDCT-vs-modular pick), single image and grid rows (`codec.encode`,
+`codec.decode`); the metric battery (`metrics`); the RD-sweep harness with
+its CSVs and A/B comparison (`bench`); the CLI, `python -m jxl_tpu_torch
+{encode,decode,bench,compare} --device ...` (`cli.main`). Not yet: JXTS
+striped containers, the multi-device sweep, the persistent server.
 """
 
 __version__ = "0.1.0"

@@ -434,3 +434,10 @@ def decode_bytes_grid_device(datas, *, device) -> list:
     if out is None:
         return [decode_bytes_device(b, device=device) for b in datas]
     return list(out.unbind(0))
+
+
+def decode_file(path: str, *, device) -> np.ndarray:
+    """Decode a .jxt file to an RGB u8 [H, W, 3] numpy array (the work
+    runs on `device`)."""
+    with open(path, "rb") as f:
+        return decode_bytes(f.read(), device=device)

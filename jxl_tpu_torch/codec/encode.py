@@ -827,3 +827,24 @@ def encode_images(jobs, *, device) -> list:
     """Encode [(rgb, config[, orig_name]), ...] one by one; returns the
     container bytes in order."""
     return [encode_image(*job, device=device) for job in jobs]
+
+
+def encode_file(in_path: str, out_path: str, config: CodecConfig, *, device) -> int:
+    """Encode an image file to a .jxt file on `device`; returns the
+    compressed size in bytes. Above the single-section cap the reference
+    writes the striped JXTS format (codec/tiled.py), which is not ported
+    yet (ROADMAP A10): such an image raises NotImplementedError."""
+    import os
+
+    from jxl_tpu_torch.core.io import read_image
+
+    rgb = read_image(in_path)
+    if int(rgb.shape[0]) * int(rgb.shape[1]) > MAX_PIXELS:
+        raise NotImplementedError(
+            f"{rgb.shape[0]}x{rgb.shape[1]} exceeds the {MAX_PIXELS}-pixel single-section cap; the striped "
+            "JXTS format it needs is not ported to jxl_tpu_torch yet (ROADMAP A10)"
+        )
+    data = encode_image(rgb, config, orig_name=os.path.basename(in_path), device=device)
+    with open(out_path, "wb") as f:
+        f.write(data)
+    return len(data)

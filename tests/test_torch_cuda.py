@@ -259,3 +259,52 @@ def test_modular_row_on_card(dev):
     streams = [read_container(d) for d in datas]
     assert torch.equal(decode_values_grid(streams, dev).cpu(), decode_values_grid(streams, "cpu"))
     assert torch.equal(out.cpu(), decode_bytes_grid_stacked(datas, device="cpu"))
+
+
+# the bars of tests/test_torch_metrics.py (port vs reference), held here card vs CPU
+BATTERY_BARS = {
+    "mse": ("rel", 1e-6), "psnr": ("abs", 1e-5), "ssim": ("abs", 1e-5), "ms_ssim": ("abs", 1e-5),
+    "butteraugli": ("rel", 3e-4), "butteraugli_pnorm": ("rel", 1e-4), "ssimulacra2": ("abs", 0.05),
+}
+
+
+def _distortions(img):
+    rng = np.random.default_rng(11)
+    noise = np.clip(img.astype(np.int32) + rng.integers(-6, 7, img.shape), 0, 255).astype(np.uint8)
+    p = np.pad(img.astype(np.int32), ((1, 1), (1, 1), (0, 0)), mode="edge")
+    h, w = img.shape[:2]
+    blur = ((sum(p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)) + 4) // 9).astype(np.uint8)
+    return np.stack([noise, blur, img])
+
+
+def test_battery_on_card_matches_cpu(dev):
+    """The metric battery of a row on the card against the plain path on
+    the CPU, every intermediate on the card."""
+    from jxl_tpu_torch.metrics.battery import _battery_grid, metric_battery_grid_async
+
+    img = _card_image()
+    stack = _distortions(img)
+    o, c = torch.from_numpy(img).to(dev), torch.from_numpy(stack).to(dev)
+    assert _battery_grid(o, c).device.type == "cuda"
+    card = metric_battery_grid_async(o, c)()
+    cpu = metric_battery_grid_async(img, stack, device="cpu")()
+    for got, want in zip(card, cpu):
+        for k, (kind, bar) in BATTERY_BARS.items():
+            if want[k] in (0.0, float("inf")):
+                assert got[k] == want[k], k
+            elif kind == "rel":
+                assert abs(got[k] - want[k]) <= bar * abs(want[k]), (k, got[k], want[k])
+            else:
+                assert abs(got[k] - want[k]) <= bar, (k, got[k], want[k])
+
+
+def test_identical_images_score_exactly_on_card(dev):
+    from jxl_tpu_torch.metrics.battery import metric_battery, metric_battery_grid_async
+
+    img = _card_image()
+    t = torch.from_numpy(img).to(dev)
+    for m in [metric_battery(t, t)] + metric_battery_grid_async(t, torch.stack([t, t, t]))():
+        assert m["mse"] == 0.0 and m["psnr"] == float("inf")
+        assert abs(m["ssim"] - 1.0) <= 1e-6
+        assert m["butteraugli"] == 0.0 and m["butteraugli_pnorm"] == 0.0
+        assert m["ssimulacra2"] == 100.0

@@ -1,6 +1,7 @@
-"""Port hygiene: jxl_tpu_torch never imports jax, its copied constants equal
-the reference's, and what is not ported yet (JXTS striped containers)
-raises NotImplementedError rather than computing something else."""
+"""Port hygiene: jxl_tpu_torch never imports jax, its copied constants (codec
+tables, metric weights, CSV headers, image enums) equal the reference's,
+and what is not ported yet (JXTS striped containers, the multi-device
+sweep) raises NotImplementedError rather than computing something else."""
 
 import os
 import pkgutil
@@ -12,28 +13,36 @@ import pytest
 import torch
 
 import jxl_tpu_torch
+from jxl_tpu.bench import csv_schema as jcs
 from jxl_tpu.codec import encode as jenc
 from jxl_tpu.codec import layout as jly
 from jxl_tpu.codec import lossless as jll
+from jxl_tpu.core import image as jim
 from jxl_tpu.core import xyb as jx
 from jxl_tpu.entropy import cluster as jcl
 from jxl_tpu.entropy import grouped as jg
 from jxl_tpu.entropy import rans as jr
 from jxl_tpu.entropy import tokens as jt
+from jxl_tpu.metrics import perceptual as jp
+from jxl_tpu.metrics import quality as jmq
 from jxl_tpu.strategy import acs as ja
 from jxl_tpu.transforms import adaptive as jad
 from jxl_tpu.transforms import dct as jd
 from jxl_tpu.transforms import epf as je
 from jxl_tpu.transforms import quant as jq
 
+from jxl_tpu_torch.bench import csv_schema as tcs
 from jxl_tpu_torch.codec import encode as tenc
 from jxl_tpu_torch.codec import layout as tly
 from jxl_tpu_torch.codec import lossless as tll
+from jxl_tpu_torch.core import image as tim
 from jxl_tpu_torch.core import xyb as tx
 from jxl_tpu_torch.entropy import cluster as tcl
 from jxl_tpu_torch.entropy import grouped as tg
 from jxl_tpu_torch.entropy import rans as tr
 from jxl_tpu_torch.entropy import tokens as tt
+from jxl_tpu_torch.metrics import perceptual as tp
+from jxl_tpu_torch.metrics import quality as tmq
 from jxl_tpu_torch.strategy import acs as ta
 from jxl_tpu_torch.transforms import adaptive as tad
 from jxl_tpu_torch.transforms import dct as td
@@ -50,6 +59,7 @@ def test_port_imports_no_jax():
     no jax / jaxlib module loaded."""
     mods = [m.name for m in pkgutil.walk_packages(jxl_tpu_torch.__path__, "jxl_tpu_torch.")]
     assert "jxl_tpu_torch.codec.encode" in mods and "jxl_tpu_torch.codec.decode" in mods
+    assert {"jxl_tpu_torch.metrics.battery", "jxl_tpu_torch.bench.sweep", "jxl_tpu_torch.cli.main"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -97,6 +107,41 @@ def test_numpy_constants_equal():
     assert tll._mod_coefs() == jll._mod_coefs()
     assert tenc.EncoderKnobs().mod_rule == jenc._mode_rule()
     assert (tly.LL_Q, tly.LL_EDGES) == (jly.LL_Q, jly.LL_EDGES)
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["_S2_SCALES", "_S2_W_SCALE", "_S2_W_CH", "_S2_W_COMP", "_S2_GAIN", "_S2_POW", "_BA_BAND_W", "_BA_ASYM",
+     "_BA_MASK", "_BA_GAIN", "_BA_RESP_GAMMA", "_BA_RESP_PIVOT"],
+)
+def test_metric_weights_equal(name):
+    """The perceptual metrics' weights: the values carried across."""
+    got, want = getattr(tp, name), getattr(jp, name)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert np.asarray(got).dtype == np.asarray(want).dtype
+
+
+def test_quality_constants_and_csv_headers_equal():
+    assert tmq._MSSSIM_WEIGHTS == jmq._MSSSIM_WEIGHTS
+    np.testing.assert_array_equal(tp._BA_ACT_W, np.asarray([30.0, 6.0, 2.0], np.float32))  # inline in the reference
+    for name in ("IMAGE_FILE_DATA_HEADER", "COMPARISON_RESULT_HEADER", "COMPARISON_DIFF_HEADER"):
+        assert getattr(tcs, name) == getattr(jcs, name), name
+    assert tcs.ComparisonResult.NUMERIC_FIELDS == jcs.ComparisonResult.NUMERIC_FIELDS
+    row = jcs.ComparisonResult(orig_image_name="a.png", comp_image_name="a-1.0-7.jxt", distance=1.0, effort=7, mse=0.5, psnr=float("inf"))
+    assert tcs.ComparisonResult(**vars(row)).row() == row.row()
+    assert tcs.comparison_result_from_row([str(v) for v in row.row()]) == tcs.ComparisonResult(**vars(jcs.comparison_result_from_row([str(v) for v in row.row()])))
+
+
+def test_image_enums_equal():
+    for enum_name in ("ColorType", "ImageFormat"):
+        got, want = getattr(tim, enum_name), getattr(jim, enum_name)
+        assert [(m.name, m.value) for m in got] == [(m.name, m.value) for m in want]
+    for m in tim.ColorType:
+        assert (m.bytes_per_pixel, m.channels) == (jim.ColorType[m.name].bytes_per_pixel, jim.ColorType[m.name].channels)
+    assert {k: v.name for k, v in tim._EXT_TO_FORMAT.items()} == {k: v.name for k, v in jim._EXT_TO_FORMAT.items()}
+    rec = dict(image_name="x.jxt", commit="BASELINE", test_set="s", file_path="/x.jxt", width=3, height=2, file_size=9, raw_size=18,
+               jxl_orig_image_name="x.png", jxl_distance=1.0, jxl_effort=7)
+    assert tim.ImageFileData(**rec, format=tim.ImageFormat.Jxt).csv_row() == jim.ImageFileData(**rec, format=jim.ImageFormat.Jxt).csv_row()
 
 
 @pytest.mark.parametrize("d", [0.05, 0.5, 1.0, 3.0, 14.0])
@@ -148,6 +193,21 @@ def test_unported_entry_points_raise():
         tdec.decode_bytes(b"JXTS" + b"\0" * 32, device="cpu")
     with pytest.raises(NotImplementedError):
         tdec.decode_bytes_grid_stacked([b"JXTS" + b"\0" * 32] * 2, device="cpu")
+
+
+def test_encode_file_above_the_section_cap_raises(tmp_path, monkeypatch):
+    """Above MAX_PIXELS the reference writes JXTS (not ported): encode_file
+    raises NotImplementedError naming A10 and writes nothing."""
+    from jxl_tpu_torch.codec import encode as tenc_mod
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.core.io import write_image
+
+    src = str(tmp_path / "big.png")
+    write_image(src, make_test_image(32, 40, seed=4))
+    monkeypatch.setattr(tenc_mod, "MAX_PIXELS", 32 * 40 - 1)
+    with pytest.raises(NotImplementedError, match="A10"):
+        tenc_mod.encode_file(src, str(tmp_path / "big.jxt"), CodecConfig(), device="cpu")
+    assert not os.path.exists(tmp_path / "big.jxt")
 
 
 def test_lossless_container_decode_raises():
