@@ -8,17 +8,26 @@ printing a line of its own; any miss raises, so the exit code is nonzero
 and no result line is printed:
 
 1. card:   nvidia-smi name / power limit and torch's device name;
-2. build:  both rANS sources (jxl_tpu_torch/csrc/*.cu), one nvcc each, in
-           parallel, timed;
+2. build:  the rANS sources and the chain probe (jxl_tpu_torch/csrc/*.cu),
+           one nvcc each, in parallel, timed; then the probe's SM cycles
+           per link of each dependent chain of the scans on this card
+           (kernel_bounds.measure_chain_cycles), which the chain bounds
+           below are made of;
 3. kernels vs plain at the bench shapes (the port's own token stream of
            the 512x768 bench image: lanes 256, T 4731, 765 contexts):
            encode kernel (B3) and both single-stream decode phases (B1, with
            the carry) must equal their plain torch versions bit for bit;
-           both timed with CUDA events;
+           both timed with CUDA events, each time also in ns and SM cycles
+           per step (clocks.sm sampled by nvidia-smi right after the
+           window) beside its roofline bound and its chain bound (T x the
+           measured step chain at that clock;
+           jxl_tpu_torch/entropy/kernel_bounds.py);
 3b. batched decode kernel (B2) vs plain at the bench shape: grid rows of
            the bench image (10 sweep distances, and 32 points), both phases
            as the grid decode hands them over, bit for bit (values, states,
-           pointers); every stream must equal B1's decode; timed;
+           pointers); every stream must equal B1's decode; timed against
+           its bounds, and on the first 1, 4, 10, 16 and 32 streams of the
+           32-point row;
 3c. B3 and B1 vs plain on the modular shapes: the d = 0 lossless token
            streams (12 contexts) of the bench image, of
            test_images/synth/synth02.png and of uniform noise of the same
@@ -182,16 +191,54 @@ def acs_ids(stream, dev) -> list:
     return sorted(set(torch.clamp(v, 0, 8).reshape(-1).tolist()))
 
 
-def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain_iters: int, plain_warmup: bool):
+def smi_sample() -> dict:
+    """The card's SM clock (MHz), power draw and power limit (W) now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    mhz, draw, limit = (float(v) for v in out.split(","))
+    return dict(mhz=mhz, draw=draw, limit=limit)
+
+
+def kernel_time(torch, fn, *, T: int, nbytes: int, step_cycles: float, iters: int = 20) -> dict:
+    """fn's CUDA-event mean over `iters` launches (after a warm-up), the SM
+    clock sampled right after the window, and the time per step against the
+    roofline bound and the chain bound of T steps of `step_cycles` measured
+    cycles (jxl_tpu_torch/entropy/kernel_bounds.py)."""
+    from jxl_tpu_torch.entropy.kernel_bounds import chain_bound_ms, cycles_per_step, roofline_ms
+
+    ms = cuda_ms(torch, fn, iters)
+    s = smi_sample()
+    roof, chain = roofline_ms(nbytes), chain_bound_ms(T, step_cycles, s["mhz"])
+    return dict(
+        ms=ms, T=T, nbytes=nbytes, mhz=s["mhz"], draw=s["draw"], ns_per_step=ms * 1e6 / T,
+        cycles_per_step=cycles_per_step(ms, T, s["mhz"]), bound_ms=roof, chain_bound_ms=chain,
+    )
+
+
+def bound_text(k: dict) -> str:
+    return (
+        f"{k['ms']:.3f} ms, {k['ns_per_step']:.1f} ns = {k['cycles_per_step']:.0f} cycles per step (T {k['T']}, "
+        f"SM {k['mhz']:.0f} MHz, {k['draw']:.0f} W drawn); roofline {1e3 * k['bound_ms']:.2f} us "
+        f"({k['nbytes'] / 1e6:.3f} MB, {100 * k['bound_ms'] / k['ms']:.2f}%), chain "
+        f"{k['chain_bound_ms']:.3f} ms ({100 * k['chain_bound_ms'] / k['ms']:.1f}%)"
+    )
+
+
+def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain_iters: int, plain_warmup: bool,
+                label: str, chains: dict):
     """B3, then B1 over both phases (split at t_a, joined by the carry), on
     one padded token stream: each held bit for bit against its plain
     version on every output, the decode also against the encoded values
-    and the encoded stream lengths, and each timed with CUDA events.
-    Returns the errors, times, and whether B3 relaunched with grown caps."""
+    and the encoded stream lengths, and each timed with CUDA events against
+    its bounds (`chains`: the measured cycles per link). Returns the
+    errors, times, and whether B3 relaunched with grown caps."""
     from jxl_tpu_torch.entropy import cuda_rans_enc
     from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
     from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
     from jxl_tpu_torch.entropy.grouped import decode_grouped
+    from jxl_tpu_torch.entropy.kernel_bounds import decode_bytes, encode_bytes
 
     G = lanes // 128
     capw, capm = enc_caps(T, lanes)
@@ -204,7 +251,11 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
     enc_err = max_abs_diff(zip(enc_k, enc_p))
     if enc_err != 0:
         raise AssertionError(f"encode kernel differs from its plain version (max |d| {enc_err})")
-    enc_ms = cuda_ms(torch, lambda: cuda_rans_enc._launch(tokp, mantp, rows, **kw), 20)
+    n_words, n_mbytes = int(enc_k[3].sum()), int(enc_k[4].sum())
+    enc_t = kernel_time(
+        torch, lambda: cuda_rans_enc._launch(tokp, mantp, rows, **kw), T=T,
+        nbytes=encode_bytes(T, lanes, n_words, n_mbytes), step_cycles=chains["encode_step"],
+    )
     enc_plain_ms = cuda_ms(torch, lambda: encode_grouped_plain(tokp, mantp, rows, **kw), plain_iters, plain_warmup)
 
     words_g = front_packed(torch, enc_k[0], enc_k[3])
@@ -229,12 +280,18 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
         raise AssertionError("decode kernel does not return the encoded values")
     if not torch.equal(dec_k[5], torch.stack([enc_k[3], enc_k[4]])):
         raise AssertionError("decode kernel did not consume exactly the encoded streams")
-    dec_ms = cuda_ms(torch, lambda: decode_both(decode_grouped_cuda), 20)
+    wa, ba = (int(v) for v in dec_k[2].sum(dim=1).tolist())
+    dec_nbytes = decode_bytes(t_a, lanes, wa, ba) + decode_bytes(T - t_a, lanes, n_words - wa, n_mbytes - ba)
+    dec_t = kernel_time(
+        torch, lambda: decode_both(decode_grouped_cuda), T=T, nbytes=dec_nbytes, step_cycles=chains["decode_step"]
+    )
     dec_plain_ms = cuda_ms(torch, lambda: decode_both(decode_grouped), plain_iters, plain_warmup)
+    print(f"[{label} B3] {bound_text(enc_t)}; plain {enc_plain_ms:.1f} ms")
+    print(f"[{label} B1] (A + B) {bound_text(dec_t)}; plain {dec_plain_ms:.1f} ms")
     return dict(
-        enc_err=enc_err, dec_err=dec_err, enc_ms=enc_ms, enc_plain_ms=enc_plain_ms, dec_ms=dec_ms,
+        enc_err=enc_err, dec_err=dec_err, enc=enc_t, enc_plain_ms=enc_plain_ms, dec=dec_t,
         dec_plain_ms=dec_plain_ms, relaunched=relaunched, caps=(kw["capw"], kw["capm"]), default_caps=(capw, capm),
-        mbytes=int(enc_k[4].sum()),
+        mbytes=n_mbytes, words=n_words,
     )
 
 
@@ -495,6 +552,7 @@ def main() -> int:
     from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
     from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda
     from jxl_tpu_torch.entropy.grouped import decode_grouped_batched
+    from jxl_tpu_torch.entropy import kernel_bounds
 
     def reset_counts():
         encode_grouped_cuda.launches = 0
@@ -510,14 +568,22 @@ def main() -> int:
 
     # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        list(ex.map(build, ("rans_dec", "rans_enc")))
+    sources = ("rans_dec", "rans_enc", "chain_probe")
+    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
+        list(ex.map(build, sources))
     build_s = time.perf_counter() - t0
-    print(f"[2 build] rans_dec + rans_enc built in {build_s:.2f} s")
+    print(f"[2 build] {' + '.join(sources)} built in {build_s:.2f} s")
     for name, log in BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[2 build] {name}: {line.strip()}")
+    chains = kernel_bounds.measure_chain_cycles(dev)
+    print(
+        f"[2 chains] SM cycles per link, one warp, {kernel_bounds.PROBE_LINKS} links (csrc/chain_probe.cu): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in chains.items())
+    )
+    if not all(0 < v < 1e4 for v in chains.values()):
+        raise AssertionError(f"chain probe readings out of range: {chains}")
 
     # ---- 3. kernels vs plain at the bench shapes
     img = bench_image()
@@ -536,10 +602,16 @@ def main() -> int:
         f"(phase A {t_a}, phase B {T - t_a}), caps ({capw}, {capm})"
     )
 
-    b3 = hold_stream(torch, tokp, mantp, rows, T=T, t_a=t_a, lanes=lanes, plain_iters=2, plain_warmup=True)
-    enc_err, enc_ms, enc_plain_ms = b3["enc_err"], b3["enc_ms"], b3["enc_plain_ms"]
-    dec_err, dec_ms, dec_plain_ms = b3["dec_err"], b3["dec_ms"], b3["dec_plain_ms"]
-    print(f"[3 encode kernel] bit-exact vs plain; kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms")
+    b3 = hold_stream(
+        torch, tokp, mantp, rows, T=T, t_a=t_a, lanes=lanes, plain_iters=2, plain_warmup=True, label="3",
+        chains=chains,
+    )
+    enc_err, enc_ms, enc_plain_ms = b3["enc_err"], b3["enc"]["ms"], b3["enc_plain_ms"]
+    dec_err, dec_ms, dec_plain_ms = b3["dec_err"], b3["dec"]["ms"], b3["dec_plain_ms"]
+    print(
+        f"[3 encode kernel] bit-exact vs plain; {b3['words']} words, {b3['mbytes']} mantissa bytes; "
+        f"kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms"
+    )
     print(
         f"[3 decode kernel] both phases bit-exact vs plain (values, states, pointers); "
         f"kernel {dec_ms:.3f} ms, plain {dec_plain_ms:.1f} ms (A + B)"
@@ -548,7 +620,7 @@ def main() -> int:
     # ---- 3b. batched decode kernel (B2) vs plain at the bench shape
     cfg = CodecConfig(distance=1.0, effort=7)
     rows_of = {10: RUST_DISTANCES, GRID_BATCH: tuple(float(d) for d in np.linspace(0.5, 14.0, GRID_BATCH))}
-    b2_ms, b2_err, b2_plain_ms = {}, 0, None
+    b2_ms, b2_t, b2_err, b2_plain_ms = {}, {}, 0, None
     for B, dists in rows_of.items():
         streams = [read_container(b) for b in encode_image_grid(img, cfg, dists, device=dev)]
         calls, errs = [], []
@@ -577,7 +649,32 @@ def main() -> int:
             for args, T, lanes, _k in calls:
                 fn(*args, T=T, lanes=lanes)
 
-        b2_ms[B] = cuda_ms(torch, lambda: run_phases(decode_grouped_batched_cuda), 20)
+        def b2_launch(nb=B):
+            """B2 on the first nb streams."""
+            def fn(words, mant, states, rows_, ptrs, *, T, lanes):
+                return decode_grouped_batched_cuda(
+                    words[: nb * G].contiguous(), mant[: nb * G].contiguous(), states[:nb].contiguous(),
+                    rows_[:, :nb].contiguous(), ptrs[:, : nb * G].contiguous(), T=T, lanes=lanes,
+                )
+            return fn
+
+        def b2_bytes(nb=B):
+            return sum(
+                kernel_bounds.decode_bytes(T_, lanes_, *(int(v) for v in (k[2] - a[4]).reshape(2, B, G)[:, :nb].sum(dim=(1, 2))), B=nb)
+                for a, T_, lanes_, k in calls
+            )
+
+        b2_t[B] = kernel_time(
+            torch, lambda: run_phases(b2_launch()), T=T, nbytes=b2_bytes(), step_cycles=chains["decode_step"]
+        )
+        b2_ms[B] = b2_t[B]["ms"]
+        print(f"[3b B2 B={B}] (A + B) {bound_text(b2_t[B])}")
+        if B == GRID_BATCH:
+            scale = [(nb, cuda_ms(torch, lambda: run_phases(b2_launch(nb)), 20)) for nb in (1, 4, 10, 16, 32)]
+            print(
+                "[3b B2 scaling] first nb streams of the 32-point row, A + B: "
+                + ", ".join(f"B={nb} {ms:.3f} ms" for nb, ms in scale)
+            )
         if B == 10:
             # B1 alone on the row's densest stream (d=0.5, the most words and
             # mantissa bytes per step): a batch runs at its slowest chain's pace
@@ -615,7 +712,7 @@ def main() -> int:
         tokp_l, mantp_l, rows_l, _f = entropy_inputs(tok_l, mant_l, ll_step_ctx(llay, qs_l), llay, ll_lanes)
         r = hold_stream(
             torch, tokp_l, mantp_l, rows_l, T=llay["T"], t_a=llay["t_a"], lanes=ll_lanes, plain_iters=1,
-            plain_warmup=False,
+            plain_warmup=False, label=f"3c {name} d=0", chains=chains,
         )
         ll_kernels[name] = r
         if name == "noise" and not r["relaunched"]:
@@ -624,8 +721,8 @@ def main() -> int:
             f"[3c {name} d=0] {llay['n_tokens']} tokens, lanes {ll_lanes}, T {llay['T']} (phase A {llay['t_a']}), "
             f"{llay['n_ctx']} contexts, {r['mbytes']} mantissa bytes; B3 caps {r['default_caps']} -> "
             f"{'relaunched at ' + str(r['caps']) if r['relaunched'] else 'no relaunch'}; B3 and B1 (A + B) "
-            f"bit-exact vs plain; B3 {r['enc_ms']:.3f} ms (plain {r['enc_plain_ms']:.1f} ms), "
-            f"B1 {r['dec_ms']:.3f} ms (plain {r['dec_plain_ms']:.1f} ms)"
+            f"bit-exact vs plain; B3 {r['enc']['ms']:.3f} ms (plain {r['enc_plain_ms']:.1f} ms), "
+            f"B1 {r['dec']['ms']:.3f} ms (plain {r['dec_plain_ms']:.1f} ms)"
         )
 
     # ---- 4. main path, single image
@@ -845,23 +942,30 @@ def main() -> int:
         ne, n1, n2 = phase()
         n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
 
+    def timing(t: dict) -> dict:
+        """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""
+        return {
+            "ms": t["ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "chain_bound_ms": t["chain_bound_ms"], "cycles_per_step": t["cycles_per_step"],
+        }
+
     kernels = [
         {
             "name": "rans_decode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans.py:239", "launches": n_dec,
             "max_abs_err": max([dec_err] + [r["dec_err"] for r in ll_kernels.values()]),
-            "ms": dec_ms, "plain_ms": dec_plain_ms,
+            "plain_ms": dec_plain_ms, **timing(b3["dec"]),
         },
         {
             "name": "rans_decode_batched", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans.py:272", "launches": n_b2,
-            "max_abs_err": b2_err, "ms": b2_ms[GRID_BATCH], "plain_ms": b2_plain_ms,
+            "max_abs_err": b2_err, "plain_ms": b2_plain_ms, **timing(b2_t[GRID_BATCH]),
         },
         {
             "name": "rans_encode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_enc.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans_enc.py:208", "launches": n_enc,
             "max_abs_err": max([enc_err] + [r["enc_err"] for r in ll_kernels.values()]),
-            "ms": enc_ms, "plain_ms": enc_plain_ms,
+            "plain_ms": enc_plain_ms, **timing(b3["enc"]),
         },
     ]
     print(smi)

@@ -4,10 +4,13 @@
 `jxl_tpu/entropy/pallas_rans.py:decode_grouped_pallas` and
 `decode_grouped_batched_cuda` (B2, B same-geometry streams) replaces
 `decode_grouped_pallas_batched`, the Pallas TPU decode scans. Both launch
-the kernel of `csrc/rans_dec.cu` (one 128-thread CTA per stream and
-128-lane group, states in registers, word/byte ranks from warp ballots)
-through its two C entry points; its source note says what bounds it on an
-H100. The plain versions are `entropy/grouped.py:decode_grouped` and
+the kernel of `csrc/rans_dec.cu` through its two C entry points: one
+two-warp CTA per stream and 128-lane group, one warp running the states
+(four lanes a thread, word ranks from warp ballots, the word stream and
+step rows in shared-memory rings refilled ahead with cp.async), the other
+turning the decoded symbols into values with the mantissa bytes; its
+source note says what bounds it on an H100 and what it measures there.
+The plain versions are `entropy/grouped.py:decode_grouped` and
 `decode_grouped_batched`, with the same arguments and outputs.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for

@@ -2,11 +2,13 @@
 (kernel B3).
 
 Replaces `jxl_tpu/entropy/pallas_rans_enc.py:encode_grouped_pallas`, the
-Pallas TPU encode scan. The kernel is `csrc/rans_enc.cu` (one 128-thread
-CTA per 128-lane group walking the steps back to front, each emitted word
-and mantissa byte stored straight at its back-filled slot); its source
-note says what bounds it on an H100. The plain version is
-`encode_grouped_plain`, with the same arguments and outputs.
+Pallas TPU encode scan. The kernel is `csrc/rans_enc.cu`: one two-warp
+CTA per 128-lane group walking the steps back to front, one warp running
+the states and placing the emitted words, the other packing the mantissa
+bytes, each with its own shared-memory rings refilled ahead with cp.async
+and its outputs staged and written to their back-filled slots; its source
+note says what bounds it on an H100 and what it measures there. The plain
+version is `encode_grouped_plain`, with the same arguments and outputs.
 
 Outputs (both versions): words [G, capw] int32 with group g's stream at
 [capw - wcount_g, capw) in decoder consumption order; mbytes [G, capm]

@@ -87,11 +87,17 @@ def test_kernels_match_plain(dev, lanes, T):
     np.testing.assert_array_equal(got, vals)
 
 
-@pytest.mark.parametrize("lanes", [128, 256, 512])
-@pytest.mark.parametrize("B", [1, 3, 8])
+B2_CASES = [(B, lanes) for B in (1, 3, 8) for lanes in (128, 256, 512)] + [
+    (B, lanes) for B in (16, 33, 64) for lanes in (128, 512, 1024)
+] + [(1, 1024)]
+
+
+@pytest.mark.parametrize("B,lanes", B2_CASES)
 def test_batched_decode_matches_plain(dev, B, lanes):
     """Kernel B2 against its plain version: B streams of unequal lengths
-    (one seed each) at shared caps, both phases joined by the carry."""
+    (one seed each) at shared caps, both phases joined by the carry; up to
+    64 streams x 8 groups (512 CTAs, more than one wave); the first, a
+    middle and the last stream also against B1."""
     T = 48
     t_a = T // 3
     G = lanes // 128
@@ -122,6 +128,12 @@ def test_batched_decode_matches_plain(dev, B, lanes):
     got = torch.cat([out["kernel"][0], out["kernel"][3]], dim=1).cpu().numpy()
     for i in range(B):
         np.testing.assert_array_equal(got[i], vals[i])
+    for i in sorted({0, B // 2, B - 1}):
+        g = slice(i * G, (i + 1) * G)
+        single = decode_grouped_cuda(
+            words[g], mants[g], states[i], rows_b[:t_a, i].contiguous(), ptr0[:, g].contiguous(), T=t_a, lanes=lanes
+        )
+        assert torch.equal(single[0].cpu(), out["kernel"][0][i].cpu())
 
 
 def test_grid_row_on_card(dev):
@@ -160,6 +172,141 @@ def test_encode_overflow_relaunches_kernel(dev):
     assert out[1].shape[1] > 128 and int(out[4].max()) <= out[1].shape[1]
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _encode_both(tok, mant, rows, T, lanes):
+    """B3 and its plain version at default caps (grown by the wrapper if
+    needed), equal on every output; returns the kernel's outputs."""
+    capw, capm = enc_caps(T, lanes)
+    enc_k = encode_grouped_cuda(tok, mant, rows, T=T, lanes=lanes, capw=capw, capm=capm)
+    kw = dict(T=T, lanes=lanes, capw=enc_k[0].shape[1], capm=enc_k[1].shape[1])
+    for a, b in zip(enc_k, encode_grouped_plain(tok, mant, rows, **kw)):
+        assert torch.equal(a.cpu(), b.cpu())
+    return enc_k
+
+
+def _decode_both(wg, mg, states, rows, ptr0, T, t_a, lanes):
+    """B1 and its plain version over both phases (split at t_a, joined by
+    the carry), equal on every output; returns the kernel's outputs."""
+    out = {}
+    for name, fn in (("kernel", decode_grouped_cuda), ("plain", decode_grouped)):
+        va, st, p = fn(wg, mg, states, rows[:t_a].contiguous(), ptr0, T=t_a, lanes=lanes)
+        vb, st2, p2 = fn(wg, mg, st, rows[t_a:].contiguous(), p, T=T - t_a, lanes=lanes)
+        out[name] = (va, st, p, vb, st2, p2)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert torch.equal(a.cpu(), b.cpu())
+    return out["kernel"]
+
+
+def _dense_stream(T: int, lanes: int, seed: int, dev):
+    """Tokens uniform over the alphabet (most carry 1-3 mantissa bytes, many
+    lanes renormalise each step) under one flat context, on `dev`."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 24, T * lanes) >> rng.integers(0, 24, T * lanes)
+    tok, _nb, mant = tokenize(torch.from_numpy(vals))
+    counts = torch.bincount(tok.long(), minlength=ALPHABET)[None]
+    freq, cum = quantize_histograms_t(counts)
+    rows = kernel_rows(torch.zeros(T, dtype=torch.int64), freq, cum)
+    return tok.to(dev), mant.to(dev), rows.to(dev), vals
+
+
+def test_rings_wrap_many_times(dev):
+    """A dense stream whose words and mantissa bytes pass through the
+    decoder's shared-memory rings many times (2048 words, 8192 bytes per
+    group) and through the encoder's step ring (16 steps)."""
+    lanes, T = 256, 600
+    tok, mant, rows, vals = _dense_stream(T, lanes, seed=21, dev=dev)
+    enc = _encode_both(tok, mant, rows, T, lanes)
+    assert int(enc[3].min()) > 4 * 2048 and int(enc[4].min()) > 8 * 8192
+    ptr0 = torch.zeros((2, lanes // 128), dtype=torch.int32, device=dev)
+    out = _decode_both(_front(enc[0], enc[3]), _front(enc[1], enc[4]), enc[2], rows, ptr0, T, T // 2, lanes)
+    np.testing.assert_array_equal(torch.cat([out[0], out[3]]).cpu().numpy(), vals)
+    assert torch.equal(out[5].cpu(), torch.stack([enc[3], enc[4]]).cpu())
+
+
+def test_phase_b_starts_at_unaligned_carry(dev):
+    """Phase B starts where phase A stopped: carry pointers that are not
+    multiples of 4 (nor of 16 bytes) for several splits."""
+    lanes, T = 384, 90
+    tok, mant, rows, vals = _dense_stream(T, lanes, seed=5, dev=dev)
+    enc = _encode_both(tok, mant, rows, T, lanes)
+    wg, mg = _front(enc[0], enc[3]), _front(enc[1], enc[4])
+    ptr0 = torch.zeros((2, lanes // 128), dtype=torch.int32, device=dev)
+    odd = 0
+    for t_a in (1, 7, 13, 45, 89):
+        out = _decode_both(wg, mg, enc[2], rows, ptr0, T, t_a, lanes)
+        odd += int((out[2].cpu() % 4 != 0).sum())
+        np.testing.assert_array_equal(torch.cat([out[0], out[3]]).cpu().numpy(), vals)
+    assert odd > 0
+
+
+@pytest.mark.parametrize("cut", ["short", "start_past_cap", "start_negative"])
+def test_reads_past_bucket_read_zero(dev, cut):
+    """Buckets cut short (reads run past the cap), start pointers past the
+    cap and before the bucket: every read outside a bucket reads 0, in the
+    kernel as in the plain version, on every output."""
+    lanes, T = 256, 120
+    tok, mant, rows, _vals = _dense_stream(T, lanes, seed=8, dev=dev)
+    enc = _encode_both(tok, mant, rows, T, lanes)
+    wg, mg = _front(enc[0], enc[3]), _front(enc[1], enc[4])
+    G = lanes // 128
+    ptr0 = torch.zeros((2, G), dtype=torch.int32, device=dev)
+    if cut == "short":
+        wg, mg = wg[:, : wg.shape[1] // 3].contiguous(), mg[:, : mg.shape[1] // 5].contiguous()
+    elif cut == "start_past_cap":
+        ptr0 = torch.tensor([[wg.shape[1] - 37] * G, [mg.shape[1] + 3] * G], dtype=torch.int32, device=dev)
+    else:
+        ptr0 = torch.tensor([[-301] * G, [-5000] * G], dtype=torch.int32, device=dev)
+    _decode_both(wg, mg, enc[2], rows, ptr0, T, T // 3, lanes)
+
+
+def test_worst_case_step(dev):
+    """Every token carries 3 mantissa bytes, and all 128 lanes of a group
+    renormalise together at 3 of every 4 steps (identical lanes, 12 bits a
+    token): the most a step can consume (128 words, 384 bytes per group),
+    the size the decoder's rings are built for."""
+    lanes, T = 256, 80
+    n = T * lanes
+    rng = np.random.default_rng(9)
+    vals = np.tile((1 << 24) + rng.integers(0, 1 << 24, T)[:, None], (1, lanes)).reshape(n)  # token 51
+    tok, _nb, mant = tokenize(torch.from_numpy(vals))
+    assert int(tok.min()) == int(tok.max()) == ALPHABET - 1
+    freq = torch.zeros((1, ALPHABET), dtype=torch.int64)
+    freq[0, 0], freq[0, ALPHABET - 1] = 4095, 1  # token 51 at 1/4096: 12 bits a step
+    cum = torch.cumsum(freq, dim=1) - freq
+    rows = kernel_rows(torch.zeros(T, dtype=torch.int64), freq, cum).to(dev)
+    enc = _encode_both(tok.to(dev), mant.to(dev), rows, T, lanes)
+    assert int(enc[4].min()) == 3 * 128 * T and int(enc[3].min()) >= 128 * (T // 2)
+    wg, mg = _front(enc[0], enc[3]), _front(enc[1], enc[4])
+    ptr0 = torch.zeros((2, lanes // 128), dtype=torch.int32, device=dev)
+    out = _decode_both(wg, mg, enc[2], rows, ptr0, T, T // 2, lanes)
+    np.testing.assert_array_equal(torch.cat([out[0], out[3]]).cpu().numpy(), vals)
+
+
+def test_encode_divides_by_every_frequency(dev):
+    """Rows of two symbols at frequencies f and 4096 - f for f = 1..2048,
+    and one row of a single symbol at 4096, both symbols in every row: B3
+    divides by every f in [1, 4096] (its reciprocal table, and f = 1's own
+    path), bit-exact against the plain version on every output; B1 decodes
+    the values back."""
+    lanes, T = 256, 2049
+    freq = torch.zeros((T, ALPHABET), dtype=torch.int64)
+    f = torch.arange(1, T, dtype=torch.int64)
+    freq[: T - 1, 0], freq[: T - 1, 1] = f, 4096 - f
+    freq[T - 1, 0] = 4096
+    cum = torch.cumsum(freq, dim=1) - freq
+    rows = kernel_rows(torch.arange(T), freq, cum)
+    vals = np.random.default_rng(4).integers(0, 2, (T, lanes))
+    vals[:, 0], vals[:, 1] = 0, 1
+    vals[T - 1] = 0
+    vals = vals.reshape(T * lanes)
+    tok, _nb, mant = tokenize(torch.from_numpy(vals))
+    used = rows[torch.arange(T).repeat_interleave(lanes), tok.long()]
+    assert set(used.tolist()) == set(range(1, 4097))
+    enc = _encode_both(tok.to(dev), mant.to(dev), rows.to(dev), T, lanes)
+    ptr0 = torch.zeros((2, lanes // 128), dtype=torch.int32, device=dev)
+    out = _decode_both(_front(enc[0], enc[3]), _front(enc[1], enc[4]), enc[2], rows.to(dev), ptr0, T, T // 2, lanes)
+    np.testing.assert_array_equal(torch.cat([out[0], out[3]]).cpu().numpy(), vals)
 
 
 def test_wrappers_reject_mixed_devices(dev):
