@@ -17,11 +17,12 @@ and no result line is printed:
            the 512x768 bench image: lanes 256, T 4731, 765 contexts):
            encode kernel (B3) and both single-stream decode phases (B1, with
            the carry) must equal their plain torch versions bit for bit;
-           both timed with CUDA events, each time also in ns and SM cycles
-           per step (clocks.sm sampled by nvidia-smi right after the
+           both kernels timed with CUDA events, each time also in ns and SM
+           cycles per step (clocks.sm sampled by nvidia-smi right after the
            window) beside its roofline bound and its chain bound (T x the
            measured step chain at that clock;
-           jxl_tpu_torch/entropy/kernel_bounds.py);
+           jxl_tpu_torch/entropy/kernel_bounds.py); a plain version's time
+           is the host clock around its one compared call;
 3b. batched decode kernel (B2) vs plain at the bench shape: grid rows of
            the bench image (10 sweep distances, and 32 points), both phases
            as the grid decode hands them over, bit for bit (values, states,
@@ -74,7 +75,39 @@ and no result line is printed:
 6b. the legacy stages and the effort axis: synth02.png at d in {0, 1, 3} x
            e5-e9 with --decompress --compare-images; d = 0 exact (PSNR inf),
            the decompressed PNGs (stdlib writer) read back equal to the
-           decoded pixels.
+           decoded pixels;
+7. striped JXTS, small, held to the CPU: the bench image in 3 stripes at
+           d=1 e7 on the card, decoded on the card and on the CPU from the
+           same bytes within 1 LSB; at d=1 and d=3 the striped decode
+           against the naive paste of per-section decodes: equal more than
+           8 px away from the two seams, and, where the sections signal
+           EPF (d=3; at d=1 the encoder's measured decision leaves it off),
+           different within 8 px of a seam; a d=0 striped round trip exact;
+           a mixed modular / VarDCT container (UI beside photo, 512x768,
+           4 stripes) above 30 dB;
+7b. striped JXTS at full size: a bench-style image of 8192x8704 (71.3 MP,
+           above the single-section cap of 2^26 pixels) written as PPM,
+           through encode_file (9 stripes of ~7.9 MP) at d=1 e7, then
+           decode_bytes_device; JXTS magic, every section within the cap
+           and at 1024 lanes, PSNR above 35 dB, B3 / B1 launches (9 / 18
+           unless a relaunch is reported), one section byte-identical to
+           encode_image of that stripe alone, peak device memory, encode
+           and decode seconds and MP/s; then B3 and B1 on one stripe's
+           stream (lanes 1024, T ~23,700): B3 and B1 (both phases: values,
+           states, pointers) bit for bit against their plain versions at
+           full length, B1 also against the encoded values; timed;
+8. mesh:   encode_grid_sharded over 4 images of test_images/synth x the 10
+           sweep distances on a data=2 mesh of the card, byte-identical to
+           encode_image_grid under modular=False;
+           encode_image_striped_sharded of the bench image in 4 stripes
+           equal to encode_image_striped; sharded_epf over space=4 slots
+           equal to epf_apply; a 2-image `bench --mesh data=2` run whose
+           comparisons.csv equals the single-device run's;
+9. serve:  `python -m jxl_tpu_torch serve --device cuda:0` on a socket under
+           the sweep's directory; encode and decode as fresh client
+           processes, forwarded and (JXL_TPU_TORCH_NO_SERVER=1) cold local:
+           the files must be equal; process wall of each printed; shutdown,
+           and the socket must be gone.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -103,7 +136,7 @@ RUST_DISTANCES = (0.5, 1.0, 1.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
 GRID_BATCH = 32  # points per grid row that bench.py times
 REPO = os.path.dirname(os.path.abspath(__file__))
 SYNTH02 = os.path.join(REPO, "test_images", "synth", "synth02.png")
-SWEEP_DIR = os.path.join(REPO, "benchmarks", "chip_smoke")  # phase 6 / 6b output (git-ignored), emptied first
+SWEEP_DIR = os.path.join(REPO, "benchmarks", "chip_smoke")  # output of phases 6-9 (git-ignored), emptied first
 
 # the card's metric battery against the plain path on the CPU: the bars of
 # tests/test_torch_metrics.py (port vs reference), held here card vs CPU
@@ -226,13 +259,14 @@ def bound_text(k: dict) -> str:
     )
 
 
-def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain_iters: int, plain_warmup: bool,
-                label: str, chains: dict):
+def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, label: str, chains: dict):
     """B3, then B1 over both phases (split at t_a, joined by the carry), on
     one padded token stream: each held bit for bit against its plain
     version on every output, the decode also against the encoded values
     and the encoded stream lengths, and each timed with CUDA events against
-    its bounds (`chains`: the measured cycles per link). Returns the
+    its bounds (`chains`: the measured cycles per link). A plain version
+    runs once at full length, for the comparison, timed by the host clock
+    (a cold call: its first-use warm-up is in the reading). Returns the
     errors, times, and whether B3 relaunched with grown caps."""
     from jxl_tpu_torch.entropy import cuda_rans_enc
     from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_cuda
@@ -246,8 +280,11 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
     enc_k = encode_grouped_cuda(tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm)
     relaunched = encode_grouped_cuda.launches - n0 > 1
     kw = dict(T=T, lanes=lanes, capw=enc_k[0].shape[1], capm=enc_k[1].shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     enc_p = encode_grouped_plain(tokp, mantp, rows, **kw)
     torch.cuda.synchronize()
+    enc_plain_ms = 1e3 * (time.perf_counter() - t0)
     enc_err = max_abs_diff(zip(enc_k, enc_p))
     if enc_err != 0:
         raise AssertionError(f"encode kernel differs from its plain version (max |d| {enc_err})")
@@ -256,7 +293,6 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
         torch, lambda: cuda_rans_enc._launch(tokp, mantp, rows, **kw), T=T,
         nbytes=encode_bytes(T, lanes, n_words, n_mbytes), step_cycles=chains["encode_step"],
     )
-    enc_plain_ms = cuda_ms(torch, lambda: encode_grouped_plain(tokp, mantp, rows, **kw), plain_iters, plain_warmup)
 
     words_g = front_packed(torch, enc_k[0], enc_k[3])
     mant_g = front_packed(torch, enc_k[1], enc_k[4])
@@ -269,8 +305,11 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
         return va, st, p, vb, st2, p2
 
     dec_k = decode_both(decode_grouped_cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     dec_p = decode_both(decode_grouped)
     torch.cuda.synchronize()
+    dec_plain_ms = 1e3 * (time.perf_counter() - t0)
     dec_err = max_abs_diff(zip(dec_k, dec_p))
     if dec_err != 0:
         raise AssertionError(f"decode kernel differs from its plain version (max |d| {dec_err})")
@@ -285,7 +324,6 @@ def hold_stream(torch, tokp, mantp, rows, *, T: int, t_a: int, lanes: int, plain
     dec_t = kernel_time(
         torch, lambda: decode_both(decode_grouped_cuda), T=T, nbytes=dec_nbytes, step_cycles=chains["decode_step"]
     )
-    dec_plain_ms = cuda_ms(torch, lambda: decode_both(decode_grouped), plain_iters, plain_warmup)
     print(f"[{label} B3] {bound_text(enc_t)}; plain {enc_plain_ms:.1f} ms")
     print(f"[{label} B1] (A + B) {bound_text(dec_t)}; plain {dec_plain_ms:.1f} ms")
     return dict(
@@ -505,6 +543,322 @@ def phase_legacy(torch, dev, reset_counts, read_counts):
     return ne, n1, n2
 
 
+def section_headers(data: bytes) -> list:
+    from jxl_tpu_torch.codec.container import read_container_header
+    from jxl_tpu_torch.codec.tiled import read_striped
+
+    return [read_container_header(s) for s in read_striped(data)[2]]
+
+
+def seam_check(striped: np.ndarray, naive: np.ndarray, seams: list, expect_differs: bool, what: str) -> int:
+    """Striped decode against the naive paste of per-section decodes: equal
+    more than 8 px away from every seam; within 8 px of one, different
+    somewhere iff `expect_differs`. Returns the number of differing columns."""
+    cols = np.arange(striped.shape[1])
+    near = np.zeros(striped.shape[1], bool)
+    for x in seams:
+        near |= np.abs(cols - x + 0.5) <= 8
+    differs = (striped != naive).any(axis=(0, 2))
+    if differs[~near].any():
+        raise AssertionError(f"{what}: striped decode differs from the per-section paste away from the seams")
+    if bool(differs[near].any()) != expect_differs:
+        raise AssertionError(f"{what}: seam columns {'equal' if expect_differs else 'differ from'} the naive paste")
+    return int(differs.sum())
+
+
+def phase_striped_small(torch, dev, img, reset_counts, read_counts):
+    """7: striped containers at the bench size, held to the CPU. Returns the
+    (B3, B1, B2) launches of the card's encodes and decodes."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.decode import decode_bytes
+    from jxl_tpu_torch.codec.tiled import encode_image_striped, is_striped, read_striped, stripe_widths
+
+    h, w = img.shape[:2]
+    n = 3
+    seams = [int(x) for x in np.cumsum(stripe_widths(w, n))[:-1]]
+    reset_counts()
+    lines = []
+    for d in (1.0, 3.0):
+        data = encode_image_striped(img, CodecConfig(distance=d, effort=7), n_stripes=n, orig_name="bench", device=dev)
+        if not is_striped(data) or len(read_striped(data)[2]) != n:
+            raise AssertionError(f"d={d}: not a {n}-section JXTS container")
+        out = decode_bytes(data, device=dev)
+        naive = np.concatenate([decode_bytes(s, device=dev) for s in read_striped(data)[2]], axis=1)
+        epf = [hd.epf for hd in section_headers(data)]
+        n_cols = seam_check(out, naive, seams, expect_differs=all(epf), what=f"striped d={d}")
+        lines.append((d, data, out, epf, n_cols))
+    if not all(lines[1][3]):
+        raise AssertionError(f"d=3 sections do not signal EPF ({lines[1][3]}): the seam check has nothing to hold")
+    counts = read_counts()
+    for d, data, out, _epf, _n in lines:  # the CPU decodes the card's bytes
+        lsb = int(np.abs(out.astype(np.int32) - decode_bytes(data, device="cpu")).max())
+        if lsb > 1:
+            raise AssertionError(f"striped d={d}: card vs CPU pixels differ by {lsb} LSB (> 1)")
+    print(
+        f"[7 striped] bench image in {n} stripes (seams at {seams}), launches B3 {counts[0]}, B1 {counts[1]}; "
+        + "; ".join(
+            f"d={d}: {len(data)} B, {psnr(img, out):.4f} dB, sections signal EPF {epf}, {n_cols} columns differ from "
+            "the naive paste (all within 8 px of a seam)" for d, data, out, epf, n_cols in lines
+        ) + "; card vs CPU pixels <= 1 LSB"
+    )
+
+    reset_counts()
+    d0 = encode_image_striped(img, CodecConfig(distance=0.0, effort=7), n_stripes=n, device=dev)
+    if not np.array_equal(decode_bytes(d0, device=dev), img):
+        raise AssertionError("striped d=0 does not round-trip exactly")
+    rng = np.random.default_rng(42)
+    ui = np.full((h, w // 2, 3), 240, np.uint8)
+    for _ in range(96):
+        y, x = rng.integers(0, h - 8), rng.integers(0, w // 2 - 44)
+        ui[y : y + 6, x : x + int(rng.integers(10, 40))] = [40, 40, 90]
+    mixed = np.concatenate([ui, bench_image(h, w - w // 2, seed=11)], axis=1)
+    md = encode_image_striped(mixed, CodecConfig(distance=1.0, effort=5), n_stripes=4, device=dev)
+    modes = [hd.lossless for hd in section_headers(md)]
+    mout = decode_bytes(md, device=dev)
+    if not (any(modes) and not all(modes)) or mout.shape != mixed.shape or psnr(mixed, mout) <= 30.0:
+        raise AssertionError(f"mixed container: modes {modes}, PSNR {psnr(mixed, mout):.2f} dB")
+    lsb = int(np.abs(mout.astype(np.int32) - decode_bytes(md, device="cpu")).max())
+    if lsb > 1:
+        raise AssertionError(f"mixed container: card vs CPU pixels differ by {lsb} LSB (> 1)")
+    c2 = read_counts()
+    print(
+        f"[7 striped] d=0 in {n} stripes exact ({len(d0)} B); mixed UI + photo in 4 stripes: modular sections "
+        f"{modes}, {len(md)} B, {psnr(mixed, mout):.4f} dB, card vs CPU <= 1 LSB; launches B3 {c2[0]}, B1 {c2[1]}"
+    )
+    return tuple(a + b for a, b in zip(counts, c2))
+
+
+def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts, height=8192, width=8704, lanes=1024):
+    """7b: the striped path above the single-section cap, through
+    encode_file and decode_bytes_device; then B3 and B1 on one stripe's
+    stream at 1024 lanes against their plain versions. Returns the
+    (B3, B1, B2) launches of the main path and the kernels' readings."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import MAX_PIXELS
+    from jxl_tpu_torch.codec.decode import decode_bytes_device
+    from jxl_tpu_torch.codec.encode import _step_ctx_v8, encode_file, encode_image, entropy_inputs, tokens_from_rgb
+    from jxl_tpu_torch.codec.layout import padded_layout
+    from jxl_tpu_torch.codec.tiled import default_n_stripes, is_striped, read_striped, stripe_widths
+    from jxl_tpu_torch.core.io import write_image
+
+    if height * width <= MAX_PIXELS:
+        raise AssertionError(f"{height}x{width} is not above the single-section cap of {MAX_PIXELS} pixels")
+    t0 = time.perf_counter()
+    big = bench_image(height, width, seed=1)
+    src = os.path.join(SWEEP_DIR, "big.ppm")
+    write_image(src, big)
+    make_s = time.perf_counter() - t0
+    mp = height * width / 1e6
+    n = default_n_stripes(height, width)
+    widths = stripe_widths(width, n)
+    cfg = CodecConfig(distance=1.0, effort=7)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    size = encode_file(src, os.path.join(SWEEP_DIR, "big.jxt"), cfg, device=dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    with open(os.path.join(SWEEP_DIR, "big.jxt"), "rb") as f:
+        data = f.read()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = decode_bytes_device(data, device=dev)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ne, n1, n2 = read_counts()
+
+    hdrs = section_headers(data)
+    if not is_striped(data) or len(data) != size or len(hdrs) != n:
+        raise AssertionError(f"encode_file wrote {size} bytes, {len(hdrs)} sections (want JXTS with {n})")
+    for hd, ws in zip(hdrs, widths):
+        if (hd.height, hd.width) != (height, ws) or hd.height * hd.width > MAX_PIXELS or hd.lanes != lanes or hd.lossless:
+            raise AssertionError(f"section {hd.height}x{hd.width}, lanes {hd.lanes}, modular {hd.lossless}")
+    relaunches = ne - n
+    if ne < n or n1 != 2 * n or n2 != 0:
+        raise AssertionError(f"striped launches: B3 {ne}, B1 {n1}, B2 {n2} (want {n} or more, {2 * n}, 0)")
+    if tuple(out.shape) != big.shape or out.dtype != torch.uint8:
+        raise AssertionError(f"decoded {tuple(out.shape)} {out.dtype}")
+    big_t = torch.from_numpy(big).to(dev)
+    err = out.to(torch.float32) - big_t.to(torch.float32)
+    q_db = float(10.0 * torch.log10(255.0**2 / torch.mean(err.double() ** 2)))
+    del err, big_t, out
+    if not q_db > 35.0:
+        raise AssertionError(f"striped PSNR {q_db:.4f} dB (want > 35)")
+    k = n // 2  # one section against encode_image of that stripe alone
+    x0 = sum(widths[:k])
+    stripe = big[:, x0 : x0 + widths[k]]
+    if read_striped(data)[2][k] != encode_image(stripe, CodecConfig(distance=1.0, effort=7, modular=False), device=dev):
+        raise AssertionError(f"section {k} differs from encode_image of that stripe alone")
+    print(
+        f"[7b striped] {kind} ({smi}): {height}x{width} ({mp:.1f} MP > cap {MAX_PIXELS / 1e6:.1f} MP; made and written "
+        f"as PPM in {make_s:.1f} s) through encode_file at d=1 e7: JXTS, {n} sections of widths {widths}, each within "
+        f"the cap at {lanes} lanes; {size} B, {size * 8 / (height * width):.4f} bpp, PSNR {q_db:.4f} dB; launches B3 {ne} "
+        f"({'no relaunch' if relaunches == 0 else str(relaunches) + ' relaunched'}), B1 {n1}; section {k} "
+        f"byte-identical to encode_image of its stripe; encode {enc_s:.2f} s ({mp / enc_s:.2f} MP/s, file read "
+        f"included), decode {dec_s:.2f} s ({mp / dec_s:.2f} MP/s); peak device memory encode {enc_peak:.2f} GB, "
+        f"decode {dec_peak:.2f} GB (one cold run each)"
+    )
+
+    # B3 and B1 on that stripe's own stream, at the shape the path gave them
+    hs, ws = stripe.shape[:2]
+    lay = padded_layout(hs, ws, lanes)
+    token, _nb, mant, _params, q_sorted, _vals = tokens_from_rgb(
+        torch.from_numpy(np.ascontiguousarray(stripe)).to(dev), 1.0, height=hs, width=ws, effort=7
+    )
+    tokp, mantp, rows, _freq = entropy_inputs(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
+    del token, mant, _vals
+    r = hold_stream(
+        torch, tokp, mantp, rows, T=lay["T"], t_a=lay["t_a"], lanes=lanes, label="7b stripe", chains=chains,
+    )
+    print(
+        f"[7b kernels] stripe {k} ({hs}x{ws}): {lay['n_tokens']} tokens, lanes {lanes} (G={lanes // 128}), T {lay['T']} (phase A "
+        f"{lay['t_a']}), {r['words']} words, {r['mbytes']} mantissa bytes; B3 and B1 (A + B: values, states and pointers of "
+        f"both phases) bit-exact vs their plain versions at full length; B1 also returns the encoded values and "
+        f"consumes exactly the encoded streams; one plain call each, the compared one, timed by the host clock; "
+        f"B3 {r['enc']['ms']:.3f} ms (plain {r['enc_plain_ms']:.0f} ms), B1 {r['dec']['ms']:.3f} ms (plain "
+        f"{r['dec_plain_ms']:.0f} ms)"
+    )
+    torch.cuda.empty_cache()
+    return (ne, n1, n2), r
+
+
+def phase_mesh(torch, dev, img, reset_counts, read_counts):
+    """8: the mesh paths on slots of the one card, each against its
+    sequential form. Returns the (B3, B1, B2) launches of the mesh calls."""
+    from dataclasses import replace
+
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container
+    from jxl_tpu_torch.codec.decode import decode_stream_planes
+    from jxl_tpu_torch.codec.encode import _modular_candidate, encode_image, encode_image_grid
+    from jxl_tpu_torch.codec.tiled import encode_image_striped, encode_image_striped_sharded
+    from jxl_tpu_torch.core.io import read_png_rgb8
+    from jxl_tpu_torch.distributed.mesh import make_mesh
+    from jxl_tpu_torch.distributed.sharded import encode_grid_sharded, sharded_epf
+    from jxl_tpu_torch.transforms.epf import epf_apply
+
+    synth_dir = os.path.join(REPO, "test_images", "synth")
+    names = sorted(os.listdir(synth_dir))
+    imgs = [read_png_rgb8(os.path.join(synth_dir, nm)) for nm in names[:4]]
+    cfg = CodecConfig(effort=7)
+    reset_counts()
+    t0 = time.perf_counter()
+    grids = encode_grid_sharded(imgs, cfg, RUST_DISTANCES, mesh=make_mesh([dev] * 2, data=2), orig_names=names[:4])
+    mesh_s = time.perf_counter() - t0
+    shd = encode_image_striped_sharded(img, CodecConfig(distance=1.0, effort=7), make_mesh([dev] * 4), orig_name="bench")
+    counts = read_counts()
+    if counts[0] < 4 * len(RUST_DISTANCES) + 4:
+        raise AssertionError(f"mesh launches: B3 {counts[0]} (want >= {4 * len(RUST_DISTANCES) + 4})")
+    t0 = time.perf_counter()
+    for im, nm, row in zip(imgs, names, grids):
+        if row != encode_image_grid(im, replace(cfg, modular=False), RUST_DISTANCES, nm, device=dev):
+            raise AssertionError(f"{nm}: encode_grid_sharded differs from encode_image_grid")
+    seq_s = time.perf_counter() - t0
+    if shd != encode_image_striped(img, CodecConfig(distance=1.0, effort=7), 4, "bench", device=dev):
+        raise AssertionError("encode_image_striped_sharded differs from encode_image_striped")
+    planes, eff_mul = decode_stream_planes(
+        read_container(encode_image(img, CodecConfig(distance=3.0, effort=7), device=dev)), device=dev
+    )
+    if not torch.equal(sharded_epf(planes, eff_mul, 3.0, make_mesh([dev] * 4, space=4)), epf_apply(planes, eff_mul, 3.0)):
+        raise AssertionError("sharded_epf differs from epf_apply")
+    print(
+        f"[8 mesh] encode_grid_sharded, 4 images x {len(RUST_DISTANCES)} distances on data=2 slots of {dev}: "
+        f"byte-identical to encode_image_grid under modular=False ({mesh_s:.2f} s against {seq_s:.2f} s sequential, "
+        f"one run each); encode_image_striped_sharded (4 stripes on data=4) equals encode_image_striped; sharded_epf "
+        f"on space=4 equals epf_apply exactly on {tuple(planes.shape)}; launches B3 {counts[0]}"
+    )
+
+    pick = [nm for nm in names if not _modular_candidate(read_png_rgb8(os.path.join(synth_dir, nm)), 1)][:2]
+    img_dir = os.path.join(SWEEP_DIR, "mesh_images")
+    os.makedirs(os.path.join(img_dir, "pair"))
+    for nm in pick:
+        shutil.copy(os.path.join(synth_dir, nm), os.path.join(img_dir, "pair", nm))
+    base = ["bench", "--device", str(dev), "--test-image-dir", img_dir, "--distances", "0.5", "1", "3", "--efforts", "7"]
+    reset_counts()
+    walls, texts = [], []
+    for tag, extra in (("mesh", ["--mesh", "data=2"]), ("single", [])):
+        out_dir = os.path.join(SWEEP_DIR, f"mesh_{tag}")
+        walls.append(run_bench_cli(base + ["--benchmark-dir", out_dir] + extra, os.path.join(SWEEP_DIR, f"mesh_{tag}.log")))
+        with open(os.path.join(out_dir, "0", "pair", "BASELINE", "results", "comparisons.csv")) as f:
+            texts.append(f.read())
+    c2 = read_counts()
+    if texts[0] != texts[1] or len(texts[0].splitlines()) != 7:
+        raise AssertionError("bench --mesh data=2: comparisons.csv differs from the single-device run's")
+    print(
+        f"[8 mesh] bench --mesh data=2 on {pick} x 3 distances: comparisons.csv equal to the single-device run's in "
+        f"every column (6 rows); wall {walls[0]:.2f} s against {walls[1]:.2f} s; launches B3 {c2[0]}, B2 {c2[2]}"
+    )
+    return tuple(a + b for a, b in zip(counts, c2))
+
+
+def phase_serve(torch, dev, kind, smi, img):
+    """9: the persistent server on the card against cold one-shot processes:
+    equal files, process walls of both. Every process started here has
+    ended, or is killed, before this returns."""
+    from jxl_tpu_torch.cli.server import try_forward
+    from jxl_tpu_torch.core.io import write_image
+
+    work = os.path.join(SWEEP_DIR, "serve")
+    os.makedirs(work)
+    # a unix socket's path holds ~100 bytes: name it relative to where each process runs
+    sock = os.path.relpath(os.path.join(work, "jxl.sock"), REPO)  # the server and the clients run from REPO
+    sock_here = os.path.relpath(os.path.join(work, "jxl.sock"))
+    src = os.path.join(work, "bench.png")
+    write_image(src, img)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JXL_TPU_")}
+    cli = [sys.executable, "-m", "jxl_tpu_torch"]
+
+    def client(tag: str, extra_env: dict) -> tuple:
+        """encode then decode as two fresh processes; (encode s, decode s, jxt bytes, png bytes)."""
+        jxt, png = os.path.join(work, f"{tag}.jxt"), os.path.join(work, f"{tag}.png")
+        walls = []
+        for argv in (["encode", src, jxt, "--device", str(dev)], ["decode", jxt, png, "--device", str(dev)]):
+            t0 = time.perf_counter()
+            run = subprocess.run(cli + argv, cwd=REPO, env={**env, **extra_env}, capture_output=True, text=True, timeout=300)
+            walls.append(time.perf_counter() - t0)
+            if run.returncode != 0:
+                raise AssertionError(f"{tag} {argv[0]} failed: {run.stdout[-500:]}{run.stderr[-2000:]}")
+        with open(jxt, "rb") as f1, open(png, "rb") as f2:
+            return walls[0], walls[1], f1.read(), f2.read()
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["serve", "--device", str(dev), "--socket", sock], cwd=REPO, env=env, stdout=subprocess.PIPE, text=True
+    )
+    try:
+        ready = proc.stdout.readline()
+        start_s = time.perf_counter() - t0
+        if not ready.startswith("[serve] ready on") or not os.path.exists(sock_here):
+            raise AssertionError(f"server did not come up: {ready!r}")
+        pong = try_forward({"cmd": "ping"}, socket_path=sock_here)
+        if pong != {"ok": True, "msg": "pong", "device": str(dev)}:
+            raise AssertionError(f"ping: {pong}")
+        fwd = [client(f"fwd{i}", {"JXL_TPU_TORCH_SOCKET": sock}) for i in range(3)]
+        cold = [client(f"cold{i}", {"JXL_TPU_TORCH_NO_SERVER": "1"}) for i in range(2)]
+        for r in fwd + cold[1:]:
+            if r[2] != cold[0][2] or r[3] != cold[0][3]:
+                raise AssertionError("forwarded and local invocations wrote different files")
+        bye = try_forward({"cmd": "shutdown"}, socket_path=sock_here)
+        rc = proc.wait(timeout=60)
+        if not (bye and bye.get("ok")) or rc != 0 or os.path.exists(sock_here):
+            raise AssertionError(f"shutdown: reply {bye}, exit code {rc}, socket left: {os.path.exists(sock_here)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(
+        f"[9 serve] {kind} ({smi}): server ready in {start_s:.2f} s (torch import, CUDA context, kernels loaded); "
+        f"bench image {len(cold[0][2])} B; process wall, encode / decode: cold local "
+        + ", ".join(f"{e:.2f} / {d:.2f} s" for e, d, _j, _p in cold) + "; forwarded "
+        + ", ".join(f"{e:.2f} / {d:.2f} s" for e, d, _j, _p in fwd)
+        + " (the first forwarded pair carries the server's first-use costs); files equal; socket removed at shutdown"
+    )
+
+
 def main() -> int:
     import torch
 
@@ -603,8 +957,7 @@ def main() -> int:
     )
 
     b3 = hold_stream(
-        torch, tokp, mantp, rows, T=T, t_a=t_a, lanes=lanes, plain_iters=2, plain_warmup=True, label="3",
-        chains=chains,
+        torch, tokp, mantp, rows, T=T, t_a=t_a, lanes=lanes, label="3", chains=chains,
     )
     enc_err, enc_ms, enc_plain_ms = b3["enc_err"], b3["enc"]["ms"], b3["enc_plain_ms"]
     dec_err, dec_ms, dec_plain_ms = b3["dec_err"], b3["dec"]["ms"], b3["dec_plain_ms"]
@@ -711,8 +1064,8 @@ def main() -> int:
         )
         tokp_l, mantp_l, rows_l, _f = entropy_inputs(tok_l, mant_l, ll_step_ctx(llay, qs_l), llay, ll_lanes)
         r = hold_stream(
-            torch, tokp_l, mantp_l, rows_l, T=llay["T"], t_a=llay["t_a"], lanes=ll_lanes, plain_iters=1,
-            plain_warmup=False, label=f"3c {name} d=0", chains=chains,
+            torch, tokp_l, mantp_l, rows_l, T=llay["T"], t_a=llay["t_a"], lanes=ll_lanes, label=f"3c {name} d=0",
+            chains=chains,
         )
         ll_kernels[name] = r
         if name == "noise" and not r["relaunched"]:
@@ -942,6 +1295,22 @@ def main() -> int:
         ne, n1, n2 = phase()
         n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
 
+    # ---- 7 / 7b. striped JXTS; 8. mesh; 9. serve
+    big = {}
+
+    def striped_full():
+        counts, big["kernels"] = phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts)
+        return counts
+
+    for phase in (
+        lambda: phase_striped_small(torch, dev, img, reset_counts, read_counts),
+        striped_full,
+        lambda: phase_mesh(torch, dev, img, reset_counts, read_counts),
+    ):
+        ne, n1, n2 = phase()
+        n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+    phase_serve(torch, dev, kind, smi, img)
+
     def timing(t: dict) -> dict:
         """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""
         return {
@@ -953,8 +1322,10 @@ def main() -> int:
         {
             "name": "rans_decode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans.py:239", "launches": n_dec,
-            "max_abs_err": max([dec_err] + [r["dec_err"] for r in ll_kernels.values()]),
-            "plain_ms": dec_plain_ms, **timing(b3["dec"]),
+            "max_abs_err": max([dec_err, big["kernels"]["dec_err"]] + [r["dec_err"] for r in ll_kernels.values()]),
+            "plain_ms": dec_plain_ms, **timing(b3["dec"]), "lanes1024": {
+                "plain_ms": big["kernels"]["dec_plain_ms"], **timing(big["kernels"]["dec"]),
+            },
         },
         {
             "name": "rans_decode_batched", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_dec.cu",
@@ -964,8 +1335,10 @@ def main() -> int:
         {
             "name": "rans_encode", "route": "cuda", "source": "jxl_tpu_torch/csrc/rans_enc.cu",
             "replaces": "jxl_tpu/entropy/pallas_rans_enc.py:208", "launches": n_enc,
-            "max_abs_err": max([enc_err] + [r["enc_err"] for r in ll_kernels.values()]),
-            "plain_ms": enc_plain_ms, **timing(b3["enc"]),
+            "max_abs_err": max([enc_err, big["kernels"]["enc_err"]] + [r["enc_err"] for r in ll_kernels.values()]),
+            "plain_ms": enc_plain_ms, **timing(b3["enc"]), "lanes1024": {
+                "plain_ms": big["kernels"]["enc_plain_ms"], **timing(big["kernels"]["enc"]),
+            },
         },
     ]
     print(smi)

@@ -16,9 +16,13 @@ Covered: the codec (lossy VarDCT at efforts 1-9 under every strategy, the
 modular family: d = 0 lossless, modular-lossy, palette, the
 VarDCT-vs-modular pick), single image and grid rows (`codec.encode`,
 `codec.decode`); the metric battery (`metrics`); the RD-sweep harness with
-its CSVs and A/B comparison (`bench`); the CLI, `python -m jxl_tpu_torch
-{encode,decode,bench,compare} --device ...` (`cli.main`). Not yet: JXTS
-striped containers, the multi-device sweep, the persistent server.
+its CSVs and A/B comparison (`bench`); striped JXTS containers for images
+above the single-section cap (`codec.tiled`); the stable analysis entry
+(`codec.analysis`); the device mesh, the sharded batch / grid / striped
+encodes and the halo-exchange EPF (`distributed`, `bench --mesh`); the
+CLI, `python -m jxl_tpu_torch {encode,decode,serve,bench,compare}
+--device ...` (`cli.main`), with the persistent server (`cli.server`).
+Every module of `jxl_tpu` has its counterpart here.
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,11 @@ decoded and scored on `SweepConfig.device`:
   original in one pass and fetches `[N, 6]` once.
 
 Decode and metric wall times end in `torch.cuda.synchronize()` on a CUDA
-device. The mesh mode (`SweepConfig.mesh`) is not ported (ROADMAP A13) and
-raises NotImplementedError.
+device. In mesh mode (`SweepConfig.mesh`, `bench --mesh data=N[,space=M]`)
+batches of N same-geometry images encode through
+`distributed.sharded.encode_grid_sharded` over a mesh of `device` slots;
+the containers are the single-device path's with `modular=False`, and
+decode, battery and CSVs are shared.
 """
 
 from __future__ import annotations
@@ -109,18 +112,32 @@ class SweepConfig:
     # amplified |orig - decoded| diff images
     decompress: bool = False
     compare_images: bool = False
-    # the reference's multi-device encode ("data=N[,space=M]"): not ported
+    # "data=N" or "data=N,space=M": encode batches of N images per mesh
+    # call over slots of `device` instead of one image row at a time.
+    # None = single-device.
     mesh: Optional[str] = None
     # where every point is encoded, decoded and scored: no default
     device: Optional[str] = None
 
     def __post_init__(self):
-        if self.mesh:
-            raise NotImplementedError(
-                "SweepConfig.mesh: the multi-device sweep is not ported to jxl_tpu_torch yet (ROADMAP A13)"
-            )
         if self.device is None:
             raise ValueError("SweepConfig needs an explicit device (e.g. 'cuda:0' or 'cpu')")
+        if self.mesh:
+            parse_mesh_spec(self.mesh, self.device)  # a malformed spec fails before any work
+
+
+def parse_mesh_spec(spec: str, device):
+    """"data=4,space=2" -> a distributed.mesh.Mesh of data x space slots of
+    `device` (data and space default to 1)."""
+    from jxl_tpu_torch.distributed.mesh import make_mesh
+
+    kv = dict(part.split("=") for part in spec.replace(" ", "").split(","))
+    if not set(kv) <= {"data", "space"}:
+        raise ValueError(f"mesh spec {spec!r}: expected data=N[,space=M]")
+    data, space = int(kv.get("data", 1)), int(kv.get("space", 1))
+    if data < 1 or space < 1:
+        raise ValueError(f"mesh spec {spec!r}: sizes must be >= 1")
+    return make_mesh([device] * (data * space), data=data, space=space)
 
 
 def discover_test_sets(test_image_dir: str) -> list[str]:
@@ -223,6 +240,9 @@ class SweepRunner:
             "timings_csv": timings_csv,
         }
 
+        if self.config.mesh:
+            return self._run_mesh(ctx, ts_dir, images, done, results_csv)
+
         all_rows = []
         for image_name in images:
             img_path = os.path.join(ts_dir, image_name)
@@ -262,6 +282,65 @@ class SweepRunner:
                     continue
                 encode_s = (time.perf_counter() - t0) / max(1, len(todo))
                 all_rows.extend(self._finish_row(ctx, image_name, meta, rgb, e, todo, datas, encode_s, warm))
+        return all_rows
+
+    def _run_mesh(self, ctx, ts_dir: str, images: list, done: set, results_csv: str) -> list:
+        """Mesh mode: batches of mesh-"data"-size same-geometry images
+        encode per effort through `encode_grid_sharded`. Rows stay whole: a
+        row with any point missing is encoded again in full, and only its
+        missing points are finished. d <= 0 points go through
+        `encode_image`."""
+        from jxl_tpu_torch.distributed.sharded import encode_grid_sharded
+
+        test_set, strategy = ctx["test_set"], ctx["strategy"]
+        mesh = parse_mesh_spec(self.config.mesh, self.device)
+        n_data = mesh.shape["data"]
+        metas, rgbs, by_geom = {}, {}, {}
+        for name in images:
+            img_path = os.path.join(ts_dir, name)
+            metas[name] = read_image_metadata(img_path, test_set=test_set, commit=strategy.name)
+            append_rows(results_csv, [metas[name].csv_row()])
+            rgbs[name] = read_image(img_path)
+            by_geom.setdefault(rgbs[name].shape, []).append(name)
+
+        lossy_ds = [d for d in self.config.distances if d > 0.0]
+        all_rows = []
+        for e in self.config.efforts:
+            cfg = CodecConfig(effort=int(e), strategy=strategy)
+            for geom, geom_names in by_geom.items():
+                for i in range(0, len(geom_names), n_data):
+                    batch = [
+                        n for n in geom_names[i : i + n_data]
+                        if any((n, d, e) not in done for d in self.config.distances)
+                    ]
+                    if not batch:
+                        continue
+                    sig = ("mesh", geom, int(e), strategy.name, len(lossy_ds), len(batch))
+                    warm = 1 if sig in self._warm_sigs else 0
+                    self._warm_sigs.add(sig)
+                    t0 = time.perf_counter()
+                    try:
+                        grids = encode_grid_sharded([rgbs[n] for n in batch], cfg, lossy_ds, mesh=mesh, orig_names=batch)
+                    except Exception as exc:  # skip-on-failure
+                        print(f"[sweep] mesh encode failed for batch {batch} e{e}: {exc!r}; skipping")
+                        continue
+                    encode_s = (time.perf_counter() - t0) / max(1, len(batch) * len(lossy_ds))
+                    for name, datas in zip(batch, grids):
+                        todo = [d for d in self.config.distances if d <= 0.0 and (name, d, e) not in done]
+                        blobs = [
+                            encode_image(
+                                rgbs[name], CodecConfig(distance=0.0, effort=int(e), strategy=strategy),
+                                orig_name=name, device=self.device,
+                            )
+                            for _d in todo
+                        ]
+                        for d, blob in zip(lossy_ds, datas):
+                            if (name, d, e) not in done:
+                                todo.append(d)
+                                blobs.append(blob)
+                        all_rows.extend(
+                            self._finish_row(ctx, name, metas[name], rgbs[name], e, todo, blobs, encode_s, warm)
+                        )
         return all_rows
 
     def _finish_row(self, ctx, image_name, meta, rgb, e, todo, datas, encode_s, warm=1):

@@ -1,4 +1,4 @@
-"""CLI — encode / decode / bench / compare subcommands (port of
+"""CLI — encode / decode / serve / bench / compare subcommands (port of
 `jxl_tpu/cli/main.py`).
 
 Every subcommand that computes takes a required `--device` (e.g.
@@ -6,14 +6,18 @@ Every subcommand that computes takes a required `--device` (e.g.
 
 Usage:
   python -m jxl_tpu_torch encode in.png out.jxt --device cuda:0 --distance 1.0 --effort 7
+  python -m jxl_tpu_torch encode big.ppm big.jxt --device cuda:0 --stripes 9
   python -m jxl_tpu_torch decode out.jxt back.png --device cuda:0
+  python -m jxl_tpu_torch serve --device cuda:0 &
   python -m jxl_tpu_torch bench --device cuda:0 --test-image-dir ./test_images --grid rust
+  python -m jxl_tpu_torch bench --device cuda:0 --mesh data=2
   python -m jxl_tpu_torch bench --device cuda:0 --strategy HOMOGENEITY_PARTITIONING --compare-to BASELINE
   python -m jxl_tpu_torch compare a/comparisons.csv b/comparisons.csv out_dir
 
-Not ported: the reference's persistent server (`serve`) and the
-multi-device sweep (`bench --mesh`, raises), and striped containers
-(`encode --stripes`, raises).
+`encode` and `decode` forward to a running `serve` process on the same
+device when its socket exists (`cli/server.py`); `--stripes N` writes the
+striped JXTS format (`codec/tiled.py`); `--mesh` encodes image batches
+over a mesh of `--device` slots (`distributed/`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,25 @@ import os
 import shutil
 import sys
 import time
+
+_PROC_T0 = time.perf_counter()
+
+
+def _suggest_serve():
+    """After a slow one-shot invocation, point at the persistent server
+    (a fresh process pays torch's import, the device context and the
+    kernels' build or load before any pixel moves)."""
+    if time.perf_counter() - _PROC_T0 > 30 and not os.environ.get("JXL_TPU_TORCH_NO_SERVER"):
+        print(
+            "[hint] much of that was per-process start-up; run `python -m jxl_tpu_torch serve --device <device> &` "
+            "once and repeat invocations skip it",
+            file=sys.stderr,
+        )
+
+
+def _forwarded(rep) -> int:
+    print(rep.get("msg") or rep.get("error"))
+    return 0 if rep.get("ok") else 1
 
 
 def _add_device_arg(p):
@@ -48,25 +71,71 @@ def _add_codec_args(p):
 
 
 def cmd_encode(args) -> int:
-    if args.stripes:
-        raise NotImplementedError("encode --stripes: the striped JXTS format is not ported to jxl_tpu_torch yet (ROADMAP A10)")
+    # forward to a running server on the same device (`serve`): a fresh
+    # process pays the whole start-up on every invocation
+    from jxl_tpu_torch.cli.server import try_forward
+
+    rep = try_forward(
+        dict(
+            cmd="encode", input=os.path.abspath(args.input), output=os.path.abspath(args.output),
+            distance=args.distance, effort=args.effort, strategy=args.strategy, lanes=args.lanes,
+            stripes=args.stripes,
+        ),
+        device=args.device,
+    )
+    if rep is not None:
+        return _forwarded(rep)
+
     from jxl_tpu_torch.codec.config import CodecConfig, Strategy
     from jxl_tpu_torch.codec.encode import encode_file
+    from jxl_tpu_torch.core.io import read_image
 
     cfg = CodecConfig(distance=args.distance, effort=args.effort, strategy=Strategy[args.strategy], lanes=args.lanes)
     t0 = time.perf_counter()
-    size = encode_file(args.input, args.output, cfg, device=args.device)
-    dt = time.perf_counter() - t0
-    from jxl_tpu_torch.codec.container import read_container_header
+    if args.stripes:
+        from jxl_tpu_torch.codec.tiled import encode_image_striped
 
-    with open(args.output, "rb") as f:
-        hdr = read_container_header(f.read(64 * 1024))
-    npx = hdr.height * hdr.width
+        rgb = read_image(args.input)
+        data = encode_image_striped(
+            rgb, cfg, n_stripes=args.stripes, orig_name=os.path.basename(args.input), device=args.device
+        )
+        with open(args.output, "wb") as f:
+            f.write(data)
+        size, npx = len(data), rgb.shape[0] * rgb.shape[1]
+    else:
+        size = encode_file(args.input, args.output, cfg, device=args.device)
+        npx = _pixels_of(args.output)
+    dt = time.perf_counter() - t0
     print(f"{args.output}: {size} bytes, {size * 8 / npx:.3f} bpp, {npx / 1e6 / dt:.2f} MP/s")
+    _suggest_serve()
     return 0
 
 
+def _pixels_of(jxt_path: str) -> int:
+    """Pixel count of a written .jxt, from its header alone (a JXTS
+    wrapper's or a single section's)."""
+    from jxl_tpu_torch.codec.container import read_container_header
+    from jxl_tpu_torch.codec.tiled import is_striped, read_striped_header
+
+    with open(jxt_path, "rb") as f:
+        head = f.read(64 * 1024)
+    if is_striped(head):
+        height, width, _n = read_striped_header(head)
+        return height * width
+    hdr = read_container_header(head)
+    return hdr.height * hdr.width
+
+
 def cmd_decode(args) -> int:
+    from jxl_tpu_torch.cli.server import try_forward
+
+    rep = try_forward(
+        dict(cmd="decode", input=os.path.abspath(args.input), output=os.path.abspath(args.output)),
+        device=args.device,
+    )
+    if rep is not None:
+        return _forwarded(rep)
+
     from jxl_tpu_torch.codec.decode import decode_file
     from jxl_tpu_torch.core.io import write_image
 
@@ -76,14 +145,21 @@ def cmd_decode(args) -> int:
     write_image(args.output, rgb)
     mp = rgb.shape[0] * rgb.shape[1] / 1e6
     print(f"{args.output}: {rgb.shape[1]}x{rgb.shape[0]}, {mp / dt:.2f} MP/s")
+    _suggest_serve()
     return 0
+
+
+def cmd_serve(args) -> int:
+    from jxl_tpu_torch.cli.server import serve
+
+    return serve(args.socket, device=args.device)
 
 
 def cmd_bench(args) -> int:
     from jxl_tpu_torch.bench.sweep import SweepConfig
 
-    # refuse what cannot run before any work: --mesh (SweepConfig), --graph
-    # without matplotlib, an unavailable device
+    # refuse what cannot run before any work: --graph without matplotlib,
+    # a malformed --mesh, an unavailable device
     if args.graph:
         from jxl_tpu_torch.bench.plots import require_matplotlib
 
@@ -201,7 +277,7 @@ def main(argv=None) -> int:
         "--stripes",
         type=int,
         default=0,
-        help="encode as N independent full-height stripes (JXTS; not ported, N > 0 raises)",
+        help="encode as N independent full-height stripes (the striped JXTS container; 0 = single-section)",
     )
     _add_device_arg(pe)
     _add_codec_args(pe)
@@ -212,6 +288,15 @@ def main(argv=None) -> int:
     pd.add_argument("output")
     _add_device_arg(pd)
     pd.set_defaults(fn=cmd_decode)
+
+    ps = sub.add_parser(
+        "serve",
+        help="persistent codec server: later encode/decode invocations on the same --device forward over a unix "
+        "socket instead of paying start-up per process (JXL_TPU_TORCH_NO_SERVER=1 opts a client out)",
+    )
+    ps.add_argument("--socket", default=None, help="unix socket path (default: $JXL_TPU_TORCH_SOCKET, else a per-user name under the temporary directory)")
+    _add_device_arg(ps)
+    ps.set_defaults(fn=cmd_serve)
 
     pb = sub.add_parser("bench", help="run the RD sweep benchmark")
     pb.add_argument("--benchmark-dir", default="./benchmarks")
@@ -225,7 +310,11 @@ def main(argv=None) -> int:
     pb.add_argument("--graph", action="store_true", help="write boxplots + RD curves (needs matplotlib)")
     pb.add_argument("--decompress", action="store_true", help="write decoded PNGs + decompressed-size table")
     pb.add_argument("--compare-images", action="store_true", help="write amplified |orig-decoded| diff images")
-    pb.add_argument("--mesh", default=None, metavar="SPEC", help="multi-device sweep (not ported: raises)")
+    pb.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="encode image batches across a mesh of --device slots, e.g. 'data=4' or 'data=4,space=2' (images over "
+        "data, width over space)",
+    )
     pb.add_argument("--profile", default=None, metavar="DIR", help="write a torch.profiler Chrome trace of the sweep into DIR")
     _add_device_arg(pb)
     _add_codec_args(pb)

@@ -19,8 +19,10 @@ one launch per phase for the whole row, then reconstruction stream by
 stream. Palette streams and mixed rows decode stream by stream.
 
 Entry points take an explicit `device`; `resolve_device` turns TF32 off
-there on CUDA. Not ported yet, and raising NotImplementedError: JXTS
-striped containers (codec/tiled.py).
+there on CUDA. A striped JXTS container (magic `JXTS`) goes from
+`decode_bytes[_device]` / `decode_file` to `codec/tiled.py`, which decodes
+its sections here (`decode_stream_planes` for the VarDCT ones) and
+stitches them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from jxl_tpu_torch.codec.container import JxtStream, read_container
 from jxl_tpu_torch.codec.encode import ac_step_ctx, bucket_perm
 from jxl_tpu_torch.codec.layout import LL_Q, NNZ_Q, lossless_layout, padded_layout, token_layout
 from jxl_tpu_torch.codec.lossless import ll_step_ctx, reconstruct_lossless
+from jxl_tpu_torch.codec.tiled import decode_striped_device, is_striped
 from jxl_tpu_torch.core.device import resolve_device
 from jxl_tpu_torch.core.xyb import xyb_to_srgb
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
@@ -367,23 +370,29 @@ def decode_stream(stream: JxtStream, *, device) -> np.ndarray:
     return decode_stream_device(stream, device=device).cpu().numpy()
 
 
-def _read(data: bytes) -> JxtStream:
-    if data[:4] == b"JXTS":
-        raise NotImplementedError(
-            "JXTS striped containers (codec/tiled.py) are not ported to jxl_tpu_torch yet"
-        )
-    return read_container(data)
+def decode_stream_planes(stream: JxtStream, *, device):
+    """A VarDCT JxtStream -> (pre-EPF padded XYB planes [3, hp, wp] with B
+    as Y-residual, eff_mul [nby, nbx]) on `device`: what the striped
+    decoder (codec/tiled.py) stitches before its one EPF pass."""
+    h = stream.header
+    return _reconstruct(
+        decode_values(stream, device), h.distance, h.decode_params, height=h.height, width=h.width,
+        epf=False, return_planes=True,
+    )
 
 
 def decode_bytes_device(data: bytes, *, device) -> torch.Tensor:
-    """Decode container bytes to an RGB u8 [H, W, 3] tensor on `device`."""
-    return decode_stream_device(_read(data), device=device)
+    """Decode container bytes (a single section, or a striped JXTS
+    container) to an RGB u8 [H, W, 3] tensor on `device`."""
+    if is_striped(data):
+        return decode_striped_device(data, device=device)
+    return decode_stream_device(read_container(data), device=device)
 
 
 def decode_bytes(data: bytes, *, device) -> np.ndarray:
     """Decode container bytes to an RGB u8 [H, W, 3] numpy array (the work
     runs on `device`)."""
-    return decode_stream(_read(data), device=device)
+    return decode_bytes_device(data, device=device).cpu().numpy()
 
 
 def _same_geometry(streams) -> bool:
@@ -416,10 +425,13 @@ def decode_bytes_grid_stacked(datas, *, device):
     row, then reconstruction stream by stream.
 
     Returns None when the row is a single stream or is not uniform
-    (geometry, lanes or coding family differ, or a palette stream is in
-    it): callers decode those per stream. A uniform modular row (lossless
-    or modular-lossy points) batches like a VarDCT row."""
-    streams = [_read(b) for b in datas]
+    (geometry, lanes or coding family differ, or a palette stream or a
+    striped JXTS container is in it): callers decode those per stream. A
+    uniform modular row (lossless or modular-lossy points) batches like a
+    VarDCT row."""
+    if any(is_striped(b) for b in datas):
+        return None
+    streams = [read_container(b) for b in datas]
     if not _uniform_row(streams):
         return None
     values = decode_values_grid(streams, device)

@@ -33,8 +33,10 @@ one encode-kernel launch per coded stream, so its container is
 byte-identical to `encode_image`'s.
 
 Covered: every effort (1-9), every strategy (BASELINE and the thesis's
-homogeneity hooks), and the modular family. Not ported: the JXTS striped
-format for images above `container.MAX_PIXELS` (ValueError).
+homogeneity hooks), and the modular family. An image above
+`container.MAX_PIXELS` does not fit one section: `encode_file` writes it
+in the striped JXTS format (`codec/tiled.py:encode_image_striped`), and
+the single-section entry points raise ValueError naming that function.
 """
 
 from __future__ import annotations
@@ -582,8 +584,8 @@ def _modular_candidate(rgb: np.ndarray, mode: int) -> bool:
 def _check_size(h: int, w: int):
     if h * w > MAX_PIXELS:
         raise ValueError(
-            f"{h}x{w} exceeds the {MAX_PIXELS}-pixel single-section cap "
-            "(the JXTS striped format is not ported to jxl_tpu_torch yet)"
+            f"{h}x{w} exceeds the {MAX_PIXELS}-pixel single-section cap: use "
+            "codec.tiled.encode_image_striped (the striped JXTS format)"
         )
 
 
@@ -831,20 +833,19 @@ def encode_images(jobs, *, device) -> list:
 
 def encode_file(in_path: str, out_path: str, config: CodecConfig, *, device) -> int:
     """Encode an image file to a .jxt file on `device`; returns the
-    compressed size in bytes. Above the single-section cap the reference
-    writes the striped JXTS format (codec/tiled.py), which is not ported
-    yet (ROADMAP A10): such an image raises NotImplementedError."""
-    import os
-
+    compressed size in bytes. An image above the single-section cap is
+    written in the striped JXTS format (codec/tiled.py) with the default
+    stripe count."""
     from jxl_tpu_torch.core.io import read_image
 
     rgb = read_image(in_path)
+    name = os.path.basename(in_path)
     if int(rgb.shape[0]) * int(rgb.shape[1]) > MAX_PIXELS:
-        raise NotImplementedError(
-            f"{rgb.shape[0]}x{rgb.shape[1]} exceeds the {MAX_PIXELS}-pixel single-section cap; the striped "
-            "JXTS format it needs is not ported to jxl_tpu_torch yet (ROADMAP A10)"
-        )
-    data = encode_image(rgb, config, orig_name=os.path.basename(in_path), device=device)
+        from jxl_tpu_torch.codec.tiled import encode_image_striped
+
+        data = encode_image_striped(rgb, config, orig_name=name, device=device)
+    else:
+        data = encode_image(rgb, config, orig_name=name, device=device)
     with open(out_path, "wb") as f:
         f.write(data)
     return len(data)

@@ -1,6 +1,7 @@
 """The port's CLI (`python -m jxl_tpu_torch`, jxl_tpu_torch/cli/main.py) on
-the CPU: encode / decode / bench / compare, the required --device, and the
-options that are not ported refusing before any work."""
+the CPU: encode / decode / bench / compare, the required --device,
+`encode --stripes` and `bench --mesh`, and what cannot run refusing before
+any work."""
 
 import os
 import subprocess
@@ -109,17 +110,34 @@ def test_module_entry_point_needs_device():
 
 
 def test_unported_options_raise_before_work(tiny_set, tmp_path, monkeypatch):
+    """`encode --stripes` and `bench --mesh` run (they were the last two
+    unported options); a malformed --mesh and --graph without matplotlib
+    still refuse before any work."""
+    from jxl_tpu_torch.codec.tiled import is_striped, read_striped
+
     src = os.path.join(tiny_set, "mini", "im0.png")
-    with pytest.raises(NotImplementedError, match="A10"):
-        main(["encode", src, str(tmp_path / "s.jxt"), "--device", "cpu", "--stripes", "2"])
+    assert main(["encode", src, str(tmp_path / "s.jxt"), "--device", "cpu", "--stripes", "2"]) == 0
+    with open(tmp_path / "s.jxt", "rb") as f:
+        data = f.read()
+    assert is_striped(data) and len(read_striped(data)[2]) == 2
+    np.testing.assert_array_equal(decode_file(str(tmp_path / "s.jxt"), device="cpu"), np.asarray(jax_decode_file(str(tmp_path / "s.jxt"))))
+
+    base = ["bench", "--device", "cpu", "--test-image-dir", tiny_set, "--distances", "1", "--efforts", "7"]
+    assert main(base + ["--benchmark-dir", str(tmp_path / "mesh"), "--mesh", "data=2"]) == 0
+    assert main(base + ["--benchmark-dir", str(tmp_path / "one")]) == 0
+    rows = []
+    for name in ("mesh", "one"):
+        with open(tmp_path / name / "0" / "mini" / "BASELINE" / "results" / "comparisons.csv") as f:
+            rows.append(f.read())
+    assert rows[0] == rows[1] and len(rows[0].splitlines()) == 3
+
     bench = str(tmp_path / "bench")
-    base = ["bench", "--device", "cpu", "--test-image-dir", tiny_set, "--benchmark-dir", bench, "--distances", "1", "--efforts", "7"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(base + ["--mesh", "data=2"])
+    with pytest.raises(ValueError, match="mesh spec"):
+        main(base + ["--benchmark-dir", bench, "--mesh", "rows=2"])
     monkeypatch.setitem(sys.modules, "matplotlib", None)  # as on the card's machine
     with pytest.raises(RuntimeError, match="matplotlib"):
-        main(base + ["--graph"])
-    assert not os.path.exists(bench) and not os.path.exists(tmp_path / "s.jxt")
+        main(base + ["--benchmark-dir", bench, "--graph"])
+    assert not os.path.exists(bench)
 
 
 def test_cuda_device_without_cuda_raises(tiny_set, tmp_path):

@@ -455,3 +455,74 @@ def test_identical_images_score_exactly_on_card(dev):
         assert abs(m["ssim"] - 1.0) <= 1e-6
         assert m["butteraugli"] == 0.0 and m["butteraugli_pnorm"] == 0.0
         assert m["ssimulacra2"] == 100.0
+
+
+def _photo(h: int, w: int, seed: int) -> np.ndarray:
+    """A photo-like RGB u8 image of any size made from a seed (smooth
+    waves, texture noise, a checker of edges)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    lum = 0.55 + 0.25 * np.sin(xx / 41.0) * np.cos(yy / 29.0) + 0.1 * np.sin((xx + yy) / 97.0)
+    lum = lum + rng.normal(0, 0.025, (h, w)).astype(np.float32)
+    lum = np.clip(lum + 0.15 * (((xx // 96).astype(np.int32) ^ (yy // 64).astype(np.int32)) % 2), 0, 1)
+    rgb = np.stack([lum * (0.85 + 0.15 * np.sin(yy / 83.0)), lum, lum * (0.75 + 0.25 * np.cos(xx / 71.0))], axis=-1)
+    return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+
+def test_real_stream_at_1024_lanes_matches_plain(dev):
+    """B3 and B1 on the encoder's own stream of a 2048x2816 image (5.8 MP:
+    1024 lanes, T >= 16,384, the shape a JXTS stripe gives them), against
+    their plain versions at full length, every output bit for bit."""
+    from jxl_tpu_torch.codec.encode import _step_ctx_v8, entropy_inputs, pick_lanes, tokens_from_rgb
+    from jxl_tpu_torch.codec.layout import padded_layout, token_layout
+
+    h, w = 2048, 2816
+    lanes = pick_lanes(token_layout(h, w)["n_tokens"], 256)
+    lay = padded_layout(h, w, lanes)
+    T, t_a = lay["T"], lay["t_a"]
+    assert lanes == 1024 and T >= 16384
+    token, _nb, mant, _p, q_sorted, _v = tokens_from_rgb(
+        torch.from_numpy(_photo(h, w, seed=3)).to(dev), 1.0, height=h, width=w, effort=7
+    )
+    tokp, mantp, rows, _f = entropy_inputs(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
+    capw, capm = enc_caps(T, lanes)
+    kw = dict(T=T, lanes=lanes, capw=capw, capm=capm)
+    n0 = encode_grouped_cuda.launches
+    enc_k = encode_grouped_cuda(tokp, mantp, rows, **kw)
+    assert encode_grouped_cuda.launches == n0 + 1  # a d = 1 stream stays inside the default caps
+    for a, b in zip(enc_k, encode_grouped_plain(tokp, mantp, rows, **kw)):
+        assert torch.equal(a, b)
+    wg, mg = _front(enc_k[0], enc_k[3]), _front(enc_k[1], enc_k[4])
+    ptr0 = torch.zeros((2, lanes // 128), dtype=torch.int32, device=dev)
+    out = {}
+    for name, fn in (("kernel", decode_grouped_cuda), ("plain", decode_grouped)):
+        va, st, p = fn(wg, mg, enc_k[2], rows[:t_a].contiguous(), ptr0, T=t_a, lanes=lanes)
+        vb, st2, p2 = fn(wg, mg, st, rows[t_a:].contiguous(), p, T=T - t_a, lanes=lanes)
+        out[name] = (va, st, p, vb, st2, p2)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["kernel"][5], torch.stack([enc_k[3], enc_k[4]]))  # consumed exactly what was written
+
+
+def test_striped_container_on_card_matches_cpu(dev):
+    """A striped JXTS container on the card: sections byte-identical to the
+    CPU's encode, the stitched decode within 1 LSB of the CPU's, B3 once
+    and B1 twice per section; and the sharded form over slots of the card
+    gives the same bytes."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.decode import decode_bytes
+    from jxl_tpu_torch.codec.tiled import encode_image_striped, encode_image_striped_sharded, read_striped
+    from jxl_tpu_torch.distributed.mesh import make_mesh
+
+    img = _photo(256, 768, seed=5)
+    cfg = CodecConfig(distance=3.0, effort=7)
+    e0, d0 = encode_grouped_cuda.launches, decode_grouped_cuda.launches
+    data = encode_image_striped(img, cfg, n_stripes=3, device=dev)
+    out = decode_bytes(data, device=dev)
+    torch.cuda.synchronize()
+    assert encode_grouped_cuda.launches - e0 == 3 and decode_grouped_cuda.launches - d0 == 6
+    ref = encode_image_striped(img, cfg, n_stripes=3, device="cpu")
+    sizes = [(len(a), len(b)) for a, b in zip(read_striped(data)[2], read_striped(ref)[2])]
+    assert all(abs(a - b) <= 0.005 * b for a, b in sizes), sizes  # float order may flip a near-tie decision
+    assert np.abs(out.astype(np.int32) - decode_bytes(data, device="cpu")).max() <= 1
+    assert encode_image_striped_sharded(img, cfg, make_mesh([dev] * 3)) == data

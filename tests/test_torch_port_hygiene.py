@@ -1,7 +1,7 @@
 """Port hygiene: jxl_tpu_torch never imports jax, its copied constants (codec
-tables, metric weights, CSV headers, image enums) equal the reference's,
-and what is not ported yet (JXTS striped containers, the multi-device
-sweep) raises NotImplementedError rather than computing something else."""
+tables, metric weights, CSV headers, image enums, the JXTS wrapper's) equal
+the reference's, no entry point is left raising NotImplementedError, and
+every entry point takes an explicit device."""
 
 import os
 import pkgutil
@@ -14,9 +14,11 @@ import torch
 
 import jxl_tpu_torch
 from jxl_tpu.bench import csv_schema as jcs
+from jxl_tpu.codec import container as jct
 from jxl_tpu.codec import encode as jenc
 from jxl_tpu.codec import layout as jly
 from jxl_tpu.codec import lossless as jll
+from jxl_tpu.codec import tiled as jtl
 from jxl_tpu.core import image as jim
 from jxl_tpu.core import xyb as jx
 from jxl_tpu.entropy import cluster as jcl
@@ -32,9 +34,11 @@ from jxl_tpu.transforms import epf as je
 from jxl_tpu.transforms import quant as jq
 
 from jxl_tpu_torch.bench import csv_schema as tcs
+from jxl_tpu_torch.codec import container as tct
 from jxl_tpu_torch.codec import encode as tenc
 from jxl_tpu_torch.codec import layout as tly
 from jxl_tpu_torch.codec import lossless as tll
+from jxl_tpu_torch.codec import tiled as ttl
 from jxl_tpu_torch.core import image as tim
 from jxl_tpu_torch.core import xyb as tx
 from jxl_tpu_torch.entropy import cluster as tcl
@@ -60,6 +64,10 @@ def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(jxl_tpu_torch.__path__, "jxl_tpu_torch.")]
     assert "jxl_tpu_torch.codec.encode" in mods and "jxl_tpu_torch.codec.decode" in mods
     assert {"jxl_tpu_torch.metrics.battery", "jxl_tpu_torch.bench.sweep", "jxl_tpu_torch.cli.main"} <= set(mods)
+    assert {
+        "jxl_tpu_torch.codec.tiled", "jxl_tpu_torch.codec.analysis", "jxl_tpu_torch.distributed.mesh",
+        "jxl_tpu_torch.distributed.sharded", "jxl_tpu_torch.cli.server",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -107,6 +115,10 @@ def test_numpy_constants_equal():
     assert tll._mod_coefs() == jll._mod_coefs()
     assert tenc.EncoderKnobs().mod_rule == jenc._mode_rule()
     assert (tly.LL_Q, tly.LL_EDGES) == (jly.LL_Q, jly.LL_EDGES)
+    assert (ttl.STRIPED_MAGIC, ttl.STRIPED_VERSION, ttl.DEFAULT_STRIPE_MP) == (
+        jtl.STRIPED_MAGIC, jtl.STRIPED_VERSION, jtl.DEFAULT_STRIPE_MP,
+    )
+    assert (tct.MAX_DIM, tct.MAX_PIXELS, tct.MAX_LANES) == (jct.MAX_DIM, jct.MAX_PIXELS, jct.MAX_LANES)
 
 
 @pytest.mark.parametrize(
@@ -185,29 +197,55 @@ def test_modular_candidate_raises_unless_disabled():
 
 
 def test_unported_entry_points_raise():
-    """What stays unported behind the ported entry points: JXTS striped
-    containers."""
+    """Nothing is left unported behind the entry points: a JXTS container
+    decodes through every one of them (a grid row that holds one decodes
+    per container), a malformed one is a ValueError, and no module of the
+    package raises NotImplementedError."""
     from jxl_tpu_torch.codec import decode as tdec
 
-    with pytest.raises(NotImplementedError):
+    img = make_test_image(32, 48, seed=3)
+    data = ttl.encode_image_striped(img, tenc.CodecConfig(effort=3), n_stripes=2, device="cpu")
+    assert data[:4] == b"JXTS"
+    px = tdec.decode_bytes(data, device="cpu")
+    assert px.shape == img.shape and np.abs(px.astype(np.int32) - img).max() < 64
+    assert tdec.decode_bytes_grid_stacked([data] * 2, device="cpu") is None
+    assert all(np.array_equal(t.numpy(), px) for t in tdec.decode_bytes_grid_device([data] * 2, device="cpu"))
+    with pytest.raises(ValueError, match="malformed"):
         tdec.decode_bytes(b"JXTS" + b"\0" * 32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tdec.decode_bytes_grid_stacked([b"JXTS" + b"\0" * 32] * 2, device="cpu")
+    pkg = os.path.dirname(jxl_tpu_torch.__file__)
+    for root, _dirs, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    assert "NotImplementedError" not in f.read(), os.path.join(root, name)
 
 
 def test_encode_file_above_the_section_cap_raises(tmp_path, monkeypatch):
-    """Above MAX_PIXELS the reference writes JXTS (not ported): encode_file
-    raises NotImplementedError naming A10 and writes nothing."""
+    """Above MAX_PIXELS encode_file writes the striped JXTS format, as the
+    reference does, and the file decodes; the single-section entry point
+    refuses such an image with a ValueError naming the striped encoder."""
     from jxl_tpu_torch.codec import encode as tenc_mod
     from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.decode import decode_file
     from jxl_tpu_torch.core.io import write_image
 
+    img = make_test_image(32, 40, seed=4)
     src = str(tmp_path / "big.png")
-    write_image(src, make_test_image(32, 40, seed=4))
-    monkeypatch.setattr(tenc_mod, "MAX_PIXELS", 32 * 40 - 1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tenc_mod.encode_file(src, str(tmp_path / "big.jxt"), CodecConfig(), device="cpu")
-    assert not os.path.exists(tmp_path / "big.jxt")
+    write_image(src, img)
+    for mod in (tenc_mod, ttl):  # a cap below the image: two stripes, 16 and 24 px wide
+        monkeypatch.setattr(mod, "MAX_PIXELS", 32 * 24)
+    size = tenc_mod.encode_file(src, str(tmp_path / "big.jxt"), CodecConfig(), device="cpu")
+    with pytest.raises(ValueError, match="encode_image_striped"):
+        tenc_mod.encode_image(img, CodecConfig(), device="cpu")
+    monkeypatch.undo()
+    with open(tmp_path / "big.jxt", "rb") as f:
+        data = f.read()
+    assert len(data) == size and ttl.is_striped(data)
+    h, w, secs = ttl.read_striped(data)
+    assert (h, w) == (32, 40) and len(secs) >= 2
+    px = decode_file(str(tmp_path / "big.jxt"), device="cpu")
+    assert px.shape == img.shape
+    assert 10.0 * np.log10(255.0**2 / np.mean((px.astype(np.float64) - img) ** 2)) > 30.0
 
 
 def test_lossless_container_decode_raises():

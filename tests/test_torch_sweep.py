@@ -172,8 +172,12 @@ def test_resume_no_duplicate_rows(tiny_set, tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsw.SweepConfig(benchmark_dir=str(tmp_path), mesh="data=2", device="cpu")
+    """The mesh mode is a configuration like any other now; what still
+    refuses at construction is a malformed mesh spec and a missing device."""
+    cfg = tsw.SweepConfig(benchmark_dir=str(tmp_path), mesh="data=2", device="cpu")
+    assert tsw.parse_mesh_spec(cfg.mesh, cfg.device).shape == {"data": 2, "space": 1}
+    with pytest.raises(ValueError, match="mesh spec"):
+        tsw.SweepConfig(benchmark_dir=str(tmp_path), mesh="data=0", device="cpu")
     with pytest.raises(ValueError):
         tsw.SweepConfig(benchmark_dir=str(tmp_path))  # no device
     assert not os.listdir(tmp_path)
