@@ -107,7 +107,16 @@ and no result line is printed:
            the sweep's directory; encode and decode as fresh client
            processes, forwarded and (JXL_TPU_TORCH_NO_SERVER=1) cold local:
            the files must be equal; process wall of each printed; shutdown,
-           and the socket must be gone.
+           and the socket must be gone;
+10. standalone: the interleaved rANS coder of entropy/rans.py and the
+           MSB-first bit packer of entropy/tokens.py at the bench image's
+           stream size (1,211,136 tokens, 765 contexts, alphabet 52, lanes
+           256, T 4731; seeded geometric skew, tables from
+           quantize_histograms) on the card: words, states, stream bytes and
+           packed words equal, bit for bit, the port's on the CPU and the
+           native C++ core's (native/jxt_native.cpp, built with g++); the
+           card's, the CPU's and the native decoders all return the tokens;
+           no kernel launches; host wall of card, CPU and native printed.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -859,6 +868,86 @@ def phase_serve(torch, dev, kind, smi, img):
     )
 
 
+def phase_standalone(torch, dev, kind, smi, reset_counts, read_counts):
+    """10: the standalone interleaved rANS coder and the bit packer at the
+    bench image's stream size, on the card, against the port on the CPU and
+    the native C++ core, bit for bit; the card decodes its own stream. No
+    kernel may launch. Returns the (B3, B1, B2) launches of the phase."""
+    from jxl_tpu_torch.entropy import rans as tr
+    from jxl_tpu_torch.entropy import tokens as tt
+    from jxl_tpu_torch.native import bindings
+
+    t_phase = time.perf_counter()
+    n_ctx, alphabet, lanes, T = 765, tt.ALPHABET, 256, 4731
+    n = lanes * T  # 1,211,136 tokens, as the bench image's d=1 stream
+    rng = np.random.default_rng(10)
+    ctx = rng.integers(0, n_ctx, n).astype(np.int32)
+    p = 0.15 + 0.7 * ctx / n_ctx  # a geometric skew of its own per context
+    tok = np.minimum(rng.geometric(p) - 1, alphabet - 1).astype(np.int32)
+    counts = np.zeros((n_ctx, alphabet), np.int64)
+    np.add.at(counts, (ctx, tok), 1)
+    freq, cum = tr.quantize_histograms(counts)
+
+    def timed(fn, sync):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_dev = [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (tok, ctx, freq, cum)]
+    reset_counts()
+    (w_c, nw_c, st_c), enc_card = timed(lambda: tr.rans_encode(*t_dev, lanes=lanes), True)
+    back, dec_card = timed(lambda: tr.rans_decode(w_c, st_c, *t_dev[1:], n, lanes), True)
+    nbits = torch.from_numpy(rng.integers(0, tt.MAX_NBITS + 1, n).astype(np.int32))
+    mant = torch.from_numpy(rng.integers(0, 1 << 24, n)) & ((1 << nbits.long()) - 1)
+    cap = tt.bit_capacity_words(n)
+    nbits_c, mant_c = nbits.to(dev), mant.to(dev)
+    (pw_c, _bits), pack_card = timed(lambda: tt.pack_bits(nbits_c, mant_c, cap), True)
+    unpacked, unpack_card = timed(lambda: tt.unpack_bits(nbits_c, pw_c), True)
+    counts_run = read_counts()
+    if counts_run != (0, 0, 0):
+        raise AssertionError(f"the standalone coder launched kernels: B3, B1, B2 = {counts_run}")
+
+    (w_h, nw_h, st_h), enc_cpu = timed(lambda: tr.rans_encode(tok, ctx, freq, cum, lanes, device="cpu"), False)
+    back_h, dec_cpu = timed(lambda: tr.rans_decode(w_h, st_h, ctx, freq, cum, n, lanes, device="cpu"), False)
+    (pw_h, _b), pack_cpu = timed(lambda: tt.pack_bits(nbits, mant, cap), False)
+    bindings.build()
+    (w_n, nw_n, st_n), enc_nat = timed(lambda: bindings.rans_encode_native(tok, ctx, freq, cum, lanes), False)
+    back_n, dec_nat = timed(
+        lambda: bindings.rans_decode_native(w_c.cpu().numpy(), int(nw_c), st_c.cpu().numpy(), ctx, freq, cum, n, lanes),
+        False,
+    )
+    pw_n, pack_nat = timed(lambda: bindings.pack_bits_native(nbits, mant, cap), False)
+
+    w_c, st_c = w_c.cpu(), st_c.cpu()
+    checks = {
+        "words card = CPU": torch.equal(w_c, w_h), "words card = native": np.array_equal(w_c.numpy(), w_n),
+        "n_words": int(nw_c) == int(nw_h) == nw_n,
+        "states card = CPU = native": torch.equal(st_c, st_h) and np.array_equal(st_c.numpy(), st_n),
+        "stream bytes": tr.serialize_streams(w_c, nw_c) == tr.serialize_streams(w_n, nw_n),
+        "card decode": np.array_equal(back.cpu().numpy(), tok), "CPU decode": np.array_equal(back_h.numpy(), tok),
+        "native decode of the card's stream": np.array_equal(back_n, tok),
+        "bit words card = CPU = native": torch.equal(pw_c.cpu(), pw_h) and np.array_equal(pw_h.numpy(), pw_n.astype(np.int64)),
+        "bit unpack": torch.equal(unpacked.cpu(), mant),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"standalone coder: {bad} differ")
+    print(
+        f"[10 standalone] {kind} ({smi}): {n} tokens, {n_ctx} contexts, alphabet {alphabet}, lanes {lanes}, "
+        f"T {T}: {int(nw_c)} words ({len(tr.serialize_streams(w_c, nw_c))} B); card = CPU = native bit for bit "
+        f"(words, states, stream bytes), every decode returns the tokens, no kernel launched; host wall, encode / "
+        f"decode: card {enc_card:.3f} / {dec_card:.3f} s, CPU {enc_cpu:.3f} / {dec_cpu:.3f} s, native "
+        f"{enc_nat:.4f} / {dec_nat:.4f} s; pack_bits of {int(nbits.sum())} bits: card {1e3 * pack_card:.1f} ms "
+        f"(unpack {1e3 * unpack_card:.1f} ms; first calls, inputs on the card), CPU {1e3 * pack_cpu:.1f} ms, "
+        f"native {1e3 * pack_nat:.1f} ms; the phase took {time.perf_counter() - t_phase:.1f} s"
+    )
+    return counts_run
+
+
 def main() -> int:
     import torch
 
@@ -1310,6 +1399,9 @@ def main() -> int:
         ne, n1, n2 = phase()
         n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
     phase_serve(torch, dev, kind, smi, img)
+
+    # ---- 10. the standalone coder and the bit packer (no kernel on this path)
+    phase_standalone(torch, dev, kind, smi, reset_counts, read_counts)
 
     def timing(t: dict) -> dict:
         """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""

@@ -21,8 +21,22 @@ above the single-section cap (`codec.tiled`); the stable analysis entry
 (`codec.analysis`); the device mesh, the sharded batch / grid / striped
 encodes and the halo-exchange EPF (`distributed`, `bench --mesh`); the
 CLI, `python -m jxl_tpu_torch {encode,decode,serve,bench,compare}
---device ...` (`cli.main`), with the persistent server (`cli.server`).
-Every module of `jxl_tpu` has its counterpart here.
+--device ...` (`cli.main`), with the persistent server (`cli.server`); the
+standalone interleaved rANS coder and the mantissa packers (`entropy`), and
+the binding of the native C++ core they are held to (`native`). Every
+public name of `jxl_tpu` has its counterpart here, apart from the TPU-only
+pieces that tests/test_torch_surface.py lists with their reasons.
+
+`CodecConfig` and `Strategy` load lazily (PEP 562): the CLI's forwarding
+client imports this package and must not load torch.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    if name in ("CodecConfig", "Strategy"):
+        return getattr(importlib.import_module("jxl_tpu_torch.codec.config"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -441,6 +441,13 @@ def _read_container_checked(data: bytes) -> JxtStream:
     )
 
 
+def read_header(path: str) -> JxtHeader:
+    """The header of the .jxt file at `path` (its first 64 KiB are read)."""
+    with open(path, "rb") as f:
+        data = f.read(64 * 1024)
+    return read_container_header(data)
+
+
 def read_container_header(data: bytes) -> JxtHeader:
     _check(data[:4] == MAGIC, "bad magic (not a JXT stream)")
     off = 4

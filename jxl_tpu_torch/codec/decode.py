@@ -65,6 +65,13 @@ def _with(x: torch.Tensor, idx, val) -> torch.Tensor:
     return out
 
 
+def blocks_to_image(blocks: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[3, nby, nbx, 8, 8] -> [3, height, width] (crop padding)."""
+    nby, nbx = blocks.shape[1], blocks.shape[2]
+    planes = blocks.permute(0, 1, 3, 2, 4).reshape(3, nby * 8, nbx * 8)
+    return planes[:, :height, :width]
+
+
 def _reconstruct_sub8(storage: torch.Tensor, dc: torch.Tensor, acs: torch.Tensor) -> torch.Tensor:
     """Pixel blocks for strategies 0..3, selected per block by the acs map.
     storage: [3, nby, nbx, 8, 8] dequantised coefficients, dc: [3, nby, nbx]."""
@@ -218,8 +225,7 @@ def _reconstruct(
         [storage[0] + kb[0][:, :, None, None] * yd, yd, storage[2] + kb[1][:, :, None, None] * yd]
     )
 
-    blocks = _reconstruct_sub8(storage, dc, acs)
-    planes = blocks.permute(0, 1, 3, 2, 4).reshape(3, nby * 8, nbx * 8)
+    planes = blocks_to_image(_reconstruct_sub8(storage, dc, acs), nby * 8, nbx * 8)
     if not skip_merged:
         for n, sid, _min_eff in MERGE_LADDER:
             planes = _overlay_merged(planes, storage, dc, acs, n, sid)

@@ -197,6 +197,15 @@ def predict_lcol(v: torch.Tensor) -> torch.Tensor:
     return v - pred
 
 
+def image_to_blocks(planes: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """[3, H, W] -> edge-padded [3, hp // 8, wp // 8, 8, 8] (a view of
+    `planes` when it is already hp x wp)."""
+    h, w = planes.shape[-2:]
+    if (h, w) != (hp, wp):
+        planes = F.pad(planes[None], (0, wp - w, 0, hp - h), mode="replicate")[0]
+    return planes.reshape(3, hp // 8, 8, wp // 8, 8).permute(0, 1, 3, 2, 4)
+
+
 def dc_predict_residual(dcq: torch.Tensor) -> torch.Tensor:
     """r = q - W - N + NW over [3, nby, nbx] (unclamped gradient predictor)."""
     w = F.pad(dcq, (1, 0))[:, :, :-1]
@@ -287,7 +296,7 @@ def tokens_from_rgb(
     x, y, b = xyb[..., 0], xyb[..., 1], xyb[..., 2]
     planes = torch.stack([x, y, b - y])
     planes_p = F.pad(planes[None], (0, wp - width, 0, hp - height), mode="replicate")[0]
-    blocks = planes_p.reshape(3, nby, 8, nbx, 8).permute(0, 1, 3, 2, 4)
+    blocks = image_to_blocks(planes_p, hp, wp)
 
     if effort >= 3:
         qf_idx = quant_field(planes_p[1])
@@ -737,14 +746,17 @@ def _upload(rgb, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)).to(dev)
 
 
-def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device) -> bytes:
-    """Encode an RGB u8 [H, W, 3] image to JXT bytes, computing on `device`.
+def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device):
+    """Dispatch the encode of an RGB u8 [H, W, 3] image on `device` now;
+    returns finalize() -> JXT container bytes.
 
     d <= 0 is the exact lossless modular mode (with `config.modular`, an
     image of <= 256 colours is also coded through the palette and the
     smaller container kept). Lossy distances are floored at 0.05; with
     `config.modular`, flat synthetic content (`_modular_candidate`) is
-    also coded modular-lossy and `_pick_mode` keeps one of the two."""
+    also coded modular-lossy and `_pick_mode` keeps one of the two. As in
+    encode_image_grid_async, the device work runs before this returns;
+    finalize() does the picks and the container assembly."""
     h, w = int(rgb.shape[0]), int(rgb.shape[1])
     _check_size(h, w)
     knobs = encoder_knobs()
@@ -755,17 +767,27 @@ def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, d
         plain_fin = _modular_async(rgb_t, config, orig_name, knobs)
         pal_res = _palette_of(rgb) if config.modular else None
         if pal_res is None:
-            return plain_fin()
+            return plain_fin
         pal, idx = pal_res
         pal_fin = _palette_async(idx, pal, config, orig_name, knobs, dev)
-        plain_b, pal_b = plain_fin(), pal_fin()
-        return pal_b if len(pal_b) < len(plain_b) else plain_b
+
+        def finalize_ll() -> bytes:
+            plain_b, pal_b = plain_fin(), pal_fin()
+            return pal_b if len(pal_b) < len(plain_b) else plain_b
+
+        return finalize_ll
     config = replace(config, distance=max(float(config.distance), 0.05))
     var_fin = _encode_points_async([rgb_t], config, [config.distance], [orig_name], knobs)
     if not (config.modular and _modular_candidate(rgb, knobs.modular)):
-        return var_fin()[0]
+        return lambda: var_fin()[0]
     mod_fin = _modular_async(rgb_t, config, orig_name, knobs)
-    return _pick_mode(rgb_t, var_fin()[0], mod_fin(), knobs.mod_rule)
+    return lambda: _pick_mode(rgb_t, var_fin()[0], mod_fin(), knobs.mod_rule)
+
+
+def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device) -> bytes:
+    """Encode an RGB u8 [H, W, 3] image to JXT bytes, computing on `device`
+    (synchronous form of encode_image_async)."""
+    return encode_image_async(rgb, config, orig_name, device=device)()
 
 
 def encode_image_grid_async(rgb: np.ndarray, config: CodecConfig, distances, orig_name: str = "", *, device):

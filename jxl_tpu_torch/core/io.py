@@ -216,10 +216,9 @@ def read_image_metadata(path: str, test_set: str = "", commit: str = "") -> Imag
     file_size = os.path.getsize(path)
     name = os.path.basename(path)
     if fmt == ImageFormat.Jxt:
-        from jxl_tpu_torch.codec.container import read_container_header
+        from jxl_tpu_torch.codec.container import read_header
 
-        with open(path, "rb") as f:
-            hdr = read_container_header(f.read(64 * 1024))
+        hdr = read_header(path)
         return ImageFileData(
             image_name=name,
             commit=commit or hdr.strategy_name,

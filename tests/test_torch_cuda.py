@@ -526,3 +526,37 @@ def test_striped_container_on_card_matches_cpu(dev):
     assert all(abs(a - b) <= 0.005 * b for a, b in sizes), sizes  # float order may flip a near-tie decision
     assert np.abs(out.astype(np.int32) - decode_bytes(data, device="cpu")).max() <= 1
     assert encode_image_striped_sharded(img, cfg, make_mesh([dev] * 3)) == data
+
+
+@pytest.mark.parametrize("lanes", [1, 256])
+def test_standalone_coder_on_card_matches_cpu(dev, lanes):
+    """The standalone interleaved coder and the mantissa packers on the card
+    equal their CPU results bit for bit, and the card decodes its own
+    stream; no kernel is launched."""
+    from jxl_tpu_torch.entropy import rans as tr
+    from jxl_tpu_torch.entropy import tokens as tt
+
+    rng = np.random.default_rng(lanes)
+    n, n_ctx = 20000, 9
+    tok = np.minimum(rng.geometric(0.3, n) - 1, ALPHABET - 1)
+    ctx = rng.integers(0, n_ctx - 1, n)  # the last context is unused
+    counts = np.zeros((n_ctx, ALPHABET), np.int64)
+    np.add.at(counts, (ctx, tok), 1)
+    freq, cum = tr.quantize_histograms(counts)
+    e0, d0 = encode_grouped_cuda.launches, decode_grouped_cuda.launches
+    card = tr.rans_encode(tok, ctx, freq, cum, lanes, device=dev)
+    cpu = tr.rans_encode(tok, ctx, freq, cum, lanes, device="cpu")
+    assert all(a.device == dev for a in card)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    back = tr.rans_decode(card[0], card[2], ctx, freq, cum, n, lanes, device=dev)
+    np.testing.assert_array_equal(back.cpu().numpy(), tok)
+
+    vals = torch.from_numpy(rng.integers(0, 1 << 24, n))
+    _t, nbits, mant = (a.to(dev) for a in tokenize(vals))
+    words, _bits = tt.pack_bits(nbits, mant, tt.bit_capacity_words(n))
+    assert torch.equal(words.cpu(), tt.pack_bits(nbits.cpu(), mant.cpu(), tt.bit_capacity_words(n))[0])
+    assert torch.equal(tt.unpack_bits(nbits, words).cpu(), mant.cpu().long())
+    mbytes, _total = tt.pack_bytes(nbits, mant, tt.byte_capacity(n))
+    assert torch.equal(tt.unpack_bytes(nbits, mbytes).cpu(), mant.cpu().long())
+    torch.cuda.synchronize()
+    assert (encode_grouped_cuda.launches, decode_grouped_cuda.launches) == (e0, d0)

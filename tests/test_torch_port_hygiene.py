@@ -81,6 +81,19 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py drives the port on the card, where jax is absent: no
+    import of jax or jxl_tpu anywhere in it, top level or inside a function."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert {"jxl_tpu_torch.codec.encode", "jxl_tpu_torch.entropy"} <= mods
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "jxl_tpu")]
+
+
 @pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 256])
 def test_dct_tables_equal(n):
     np.testing.assert_array_equal(td._dct_matrix_np(n), jd._dct_matrix_np(n))
@@ -168,6 +181,49 @@ def test_step_tables_match(d):
     np.testing.assert_allclose(
         ta.sub8_step_grids(d, device="cpu").numpy(), np.asarray(ja.sub8_step_grids(d)), rtol=2e-7
     )
+
+
+@pytest.mark.parametrize(
+    "port,ref",
+    [
+        (tr.quantize_histograms, jr.quantize_histograms),
+        (tr.serialize_streams, jr.serialize_streams),
+        (tr.deserialize_streams, jr.deserialize_streams),
+        (tq.distance_scale, jq.distance_scale),
+        (tq.ac_steps_np, jq.ac_steps_np),
+        (tq.dc_steps_np, jq.dc_steps_np),
+    ],
+    ids=lambda f: f.__name__,
+)
+def test_numpy_copies_are_the_reference_code(port, ref):
+    """The numpy pieces the port copies are the reference's source, verbatim."""
+    import inspect
+
+    assert inspect.getsource(port) == inspect.getsource(ref)
+
+
+def test_fs_helpers_are_a_copy():
+    import jxl_tpu.utils.fs as jfs
+    import jxl_tpu_torch.utils.fs as tfs
+
+    with open(jfs.__file__) as a, open(tfs.__file__) as b:
+        assert a.read() == b.read()
+
+
+def test_native_core_builds_only_under_build():
+    """The port's binding compiles native/jxt_native.cpp into build/native/
+    and writes nothing into native/."""
+    from jxl_tpu_torch.native import bindings
+
+    root = os.path.realpath(REPO)
+    assert os.path.realpath(bindings.SOURCE) == os.path.join(root, "native", "jxt_native.cpp")
+    assert os.path.realpath(bindings.BUILD_DIR) == os.path.join(root, "build", "native")
+    if not bindings.available():
+        pytest.skip("needs g++ to build the native core")
+    lib = bindings.build()
+    assert os.path.realpath(lib.parent) == os.path.join(root, "build", "native") and lib.exists()
+    # (jxl_tpu's own binding may build native/libjxt_native.so meanwhile)
+    assert not [f for f in os.listdir(os.path.join(REPO, "native")) if f.startswith(lib.name.split("-")[0] + "-")]
 
 
 def _probe_image():
