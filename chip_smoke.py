@@ -116,7 +116,16 @@ and no result line is printed:
            packed words equal, bit for bit, the port's on the CPU and the
            native C++ core's (native/jxt_native.cpp, built with g++); the
            card's, the CPU's and the native decoders all return the tokens;
-           no kernel launches; host wall of card, CPU and native printed.
+           no kernel launches; host wall of card, CPU and native printed;
+11. headline: jxl_tpu_torch/bench/headline.py (what bench_torch.py prints)
+           at reps = 2 on the bench image: its JSON and its trace block
+           printed; PSNR and bpp must meet the quality anchor, B1, B2 and B3
+           must each have launched in it, every traced idle share must lie
+           in [0, 1] with kernels found; then the host synchronisations of
+           one e7 encode, counted from torch.cuda.set_sync_debug_mode("warn")
+           warnings (by source line), and traced e8 and d = 0 encodes, the
+           d = 0 decode and the metric battery of the bench image's sweep
+           row (10 distances) (busy ms, idle share).
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -130,6 +139,8 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -155,22 +166,6 @@ BAR_SSIM_ABS = 1e-5
 BAR_BA_MAX_REL = 3e-4
 BAR_BA_P3_REL = 1e-4
 BAR_S2_ABS = 0.05
-
-
-def bench_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
-    """The repository's bench image (bench.py:synth_kodak): a synthetic
-    Kodak-sized photo-like RGB u8 image made from a seed."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    base = 0.55 + 0.25 * np.sin(xx / 41.0) * np.cos(yy / 29.0) + 0.1 * np.sin((xx + yy) / 97.0)
-    tex = rng.normal(0, 0.025, (h, w)).astype(np.float32)
-    edges = 0.15 * (((xx // 96).astype(np.int32) ^ (yy // 64).astype(np.int32)) % 2)
-    lum = np.clip(base + tex + edges, 0, 1)
-    rgb = np.stack(
-        [lum * (0.85 + 0.15 * np.sin(yy / 83.0)), lum, lum * (0.75 + 0.25 * np.cos(xx / 71.0))],
-        axis=-1,
-    )
-    return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -578,6 +573,7 @@ def seam_check(striped: np.ndarray, naive: np.ndarray, seams: list, expect_diffe
 def phase_striped_small(torch, dev, img, reset_counts, read_counts):
     """7: striped containers at the bench size, held to the CPU. Returns the
     (B3, B1, B2) launches of the card's encodes and decodes."""
+    from jxl_tpu_torch.bench.headline import synth_kodak
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.decode import decode_bytes
     from jxl_tpu_torch.codec.tiled import encode_image_striped, is_striped, read_striped, stripe_widths
@@ -620,7 +616,7 @@ def phase_striped_small(torch, dev, img, reset_counts, read_counts):
     for _ in range(96):
         y, x = rng.integers(0, h - 8), rng.integers(0, w // 2 - 44)
         ui[y : y + 6, x : x + int(rng.integers(10, 40))] = [40, 40, 90]
-    mixed = np.concatenate([ui, bench_image(h, w - w // 2, seed=11)], axis=1)
+    mixed = np.concatenate([ui, synth_kodak(h, w - w // 2, seed=11)], axis=1)
     md = encode_image_striped(mixed, CodecConfig(distance=1.0, effort=5), n_stripes=4, device=dev)
     modes = [hd.lossless for hd in section_headers(md)]
     mout = decode_bytes(md, device=dev)
@@ -642,6 +638,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
     encode_file and decode_bytes_device; then B3 and B1 on one stripe's
     stream at 1024 lanes against their plain versions. Returns the
     (B3, B1, B2) launches of the main path and the kernels' readings."""
+    from jxl_tpu_torch.bench.headline import synth_kodak
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.container import MAX_PIXELS
     from jxl_tpu_torch.codec.decode import decode_bytes_device
@@ -653,7 +650,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
     if height * width <= MAX_PIXELS:
         raise AssertionError(f"{height}x{width} is not above the single-section cap of {MAX_PIXELS} pixels")
     t0 = time.perf_counter()
-    big = bench_image(height, width, seed=1)
+    big = synth_kodak(height, width, seed=1)
     src = os.path.join(SWEEP_DIR, "big.ppm")
     write_image(src, big)
     make_s = time.perf_counter() - t0
@@ -948,6 +945,78 @@ def phase_standalone(torch, dev, kind, smi, reset_counts, read_counts):
     return counts_run
 
 
+def phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts):
+    """11: the headline benchmark (what bench_torch.py prints) at reps = 2,
+    held to the quality anchor and to B1 / B2 / B3 launches; the host syncs
+    of one e7 encode; traced e8 / d = 0 encodes, the d = 0 decode and a
+    sweep row's battery.
+    Returns the (B3, B1, B2) launches of the phase."""
+    from jxl_tpu_torch.bench.headline import headline, traced
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.decode import decode_bytes_device, decode_bytes_grid_stacked
+    from jxl_tpu_torch.codec.encode import encode_image, encode_image_grid
+    from jxl_tpu_torch.metrics.battery import metric_battery_grid_async
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    res = headline(img, device=dev, reps=2)
+    print(f"[11 headline] {json.dumps(res)}")
+    print(f"[11 trace] {kind} ({smi}): {json.dumps(res['trace'])}")
+    if abs(res["psnr_db"] - ANCHOR_PSNR_DB) > PSNR_TOL_DB or abs(res["bpp"] - ANCHOR_BPP) > BPP_TOL_REL * ANCHOR_BPP:
+        raise AssertionError(f"headline {res['psnr_db']} dB / {res['bpp']} bpp misses the anchor")
+    if min(res["launches"].values()) < 1:
+        raise AssertionError(f"headline launches {res['launches']}: B1, B2 and B3 must each run")
+    for name, t in res["trace"].items():
+        if not (0.0 <= t["idle_share"] <= 1.0 and t["busy_ms"] > 0 and t["kernels"] > 0):
+            raise AssertionError(f"trace {name} out of range: {t}")
+    roof = res["roofline"]
+    if (roof["encode_device_ms"], roof["decode_device_ms"]) != (
+        res["trace"]["encode_row"]["busy_ms"], res["trace"]["decode_row"]["busy_ms"],
+    ):
+        raise AssertionError(f"device ms {roof} are not the traced rows' busy time")
+
+    cfg = CodecConfig(distance=1.0, effort=7)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            encode_image(img, cfg, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+        for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message)
+    )
+    print(
+        f"[11 syncs] one e7 encode of the bench image: {sum(syncs.values())} host synchronisations "
+        f"(set_sync_debug_mode warnings) at {len(syncs)} source lines; most: "
+        + ", ".join(f"{k} x{v}" for k, v in syncs.most_common(8))
+    )
+    if not syncs:
+        raise AssertionError("no synchronisation warning recorded: set_sync_debug_mode did not report")
+
+    cfg0 = CodecConfig(distance=0.0)
+    data0 = encode_image(img, cfg0, device=dev)
+    sweep_row = decode_bytes_grid_stacked(encode_image_grid(img, cfg, RUST_DISTANCES, device=dev), device=dev)
+    rows = {
+        "encode e8": traced(lambda: encode_image(img, CodecConfig(distance=1.0, effort=8), device=dev), dev, 1)[1],
+        "encode d=0": traced(lambda: encode_image(img, cfg0, device=dev), dev, 1)[1],
+        "decode d=0": traced(lambda: decode_bytes_device(data0, device=dev), dev, 1)[1],
+        "battery, sweep row": traced(
+            lambda: metric_battery_grid_async(img, sweep_row, device=dev)(), dev, len(RUST_DISTANCES)
+        )[1],
+    }
+    for name, t in rows.items():
+        if not (0.0 <= t["idle_share"] <= 1.0 and t["busy_ms"] > 0):
+            raise AssertionError(f"trace {name} out of range: {t}")
+    print(f"[11 trace] {kind} ({smi}): " + "; ".join(f"{k}: {json.dumps(v)}" for k, v in rows.items()))
+    counts = read_counts()
+    print(f"[11 headline] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -956,12 +1025,11 @@ def main() -> int:
         return 2
 
     # ---- 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
+    from jxl_tpu_torch.bench.headline import smi_line, synth_kodak
+
     dev = torch.device("cuda:0")
+    smi = smi_line(dev)
+    kind = torch.cuda.get_device_name(0)
     print(f"[1 card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     from jxl_tpu_torch.codec.config import CodecConfig, Strategy
@@ -1029,7 +1097,7 @@ def main() -> int:
         raise AssertionError(f"chain probe readings out of range: {chains}")
 
     # ---- 3. kernels vs plain at the bench shapes
-    img = bench_image()
+    img = synth_kodak()  # the bench image (bench.py:synth_kodak, 512x768, seed 0)
     h, w = img.shape[:2]
     lanes = pick_lanes(token_layout(h, w)["n_tokens"], 256)
     lay = padded_layout(h, w, lanes)
@@ -1402,6 +1470,10 @@ def main() -> int:
 
     # ---- 10. the standalone coder and the bit packer (no kernel on this path)
     phase_standalone(torch, dev, kind, smi, reset_counts, read_counts)
+
+    # ---- 11. the headline benchmark (bench_torch.py's body), host syncs, traces
+    ne, n1, n2 = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
 
     def timing(t: dict) -> dict:
         """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""

@@ -190,12 +190,13 @@ class Stream:
 def streams(torch, dev):
     """The bench image's d=1 stream and the three d = 0 streams of
     chip_smoke.py phase 3c."""
+    from jxl_tpu_torch.bench.headline import synth_kodak
     from jxl_tpu_torch.codec.encode import _step_ctx_v8, entropy_inputs, pick_lanes, tokens_from_rgb
     from jxl_tpu_torch.codec.layout import lossless_layout, padded_layout, token_layout
     from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens
     from jxl_tpu_torch.core.io import read_png_rgb8
 
-    img = cs.bench_image()
+    img = synth_kodak()  # the bench image (bench.py:synth_kodak, 512x768, seed 0)
     h, w = img.shape[:2]
     lanes = pick_lanes(token_layout(h, w)["n_tokens"], 256)
     lay = padded_layout(h, w, lanes)

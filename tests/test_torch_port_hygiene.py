@@ -94,6 +94,76 @@ def test_chip_smoke_imports_no_jax():
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "jxl_tpu")]
 
 
+def test_bench_torch_imports_no_jax():
+    """bench_torch.py and its module run on the card, where jax is absent: no
+    import of jax, jxl_tpu or bench.py in either, and importing them leaves
+    no such module loaded."""
+    import ast
+
+    for path in ("bench_torch.py", os.path.join("jxl_tpu_torch", "bench", "headline.py")):
+        with open(os.path.join(REPO, path)) as f:
+            tree = ast.parse(f.read())
+        mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+        mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+        assert [m for m in mods if m.startswith("jxl_tpu_torch")], path
+        assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "jxl_tpu", "bench")], path
+    code = (
+        "import sys\n"
+        "import bench_torch, jxl_tpu_torch.bench.headline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'jxl_tpu', 'bench'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize(
+    "path", ["chip_smoke.py", "bench_torch.py", os.path.join("probes", "rans_kernels.py"), os.path.join("probes", "mesh_devices.py")]
+)
+def test_card_script_names_resolve(path):
+    """The scripts that run only on the card import here, and every name they
+    take from the port or from chip_smoke.py exists: each `from M import x`
+    anywhere in the file (inside functions too), and each `alias.x` for a
+    module imported as `alias`. A rename then fails here, not on the card."""
+    import ast
+    import importlib
+    import importlib.util
+
+    full = os.path.join(REPO, path)
+    spec = importlib.util.spec_from_file_location("_card_script_" + path.replace(os.sep, "_")[:-3], full)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    with open(full) as f:
+        tree = ast.parse(f.read())
+
+    def ours(name):
+        return name.split(".")[0] in ("jxl_tpu_torch", "chip_smoke")
+
+    def has(mod, name):
+        if hasattr(mod, name):
+            return True
+        try:
+            importlib.import_module(f"{mod.__name__}.{name}")
+            return True
+        except ImportError:
+            return False
+
+    missing, aliases, checked = [], {}, 0
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom) and n.module and ours(n.module):
+            mod = importlib.import_module(n.module)
+            missing += [f"{n.module}.{a.name}" for a in n.names if not has(mod, a.name)]
+            checked += len(n.names)
+        elif isinstance(n, ast.Import):
+            aliases.update({a.asname: importlib.import_module(a.name) for a in n.names if a.asname and ours(a.name)})
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name) and n.value.id in aliases:
+            missing += [] if hasattr(aliases[n.value.id], n.attr) else [f"{n.value.id}.{n.attr}"]
+            checked += 1
+    assert checked > 0 and not missing, missing
+
+
 @pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 256])
 def test_dct_tables_equal(n):
     np.testing.assert_array_equal(td._dct_matrix_np(n), jd._dct_matrix_np(n))
