@@ -125,7 +125,20 @@ and no result line is printed:
            one e7 encode, counted from torch.cuda.set_sync_debug_mode("warn")
            warnings (by source line), and traced e8 and d = 0 encodes, the
            d = 0 decode and the metric battery of the bench image's sweep
-           row (10 distances) (busy ms, idle share).
+           row (10 distances) (busy ms, idle share);
+12. tools: the port's measurement tools (jxl_tpu_torch/tools/) in process
+           on the card, at full size: profile_stages on the bench image
+           (its stage table: wall, busy ms and kernels per stage; the
+           full-encode stage's container equal to encode_image's);
+           batch_scaling (B = 1..32, B1 at B = 1, B2 above); rd_point on
+           the bench image and one corpus-style image, the bench row's d=1
+           point held to the quality anchor; bit_breakdown of the bench
+           image, its sections summing to the container's payload (words,
+           mantissa bytes and the lane states' information) within 1e-3;
+           epf_ab on the bench image at d = 1, 4, 8; then one
+           profile_startup subprocess (a cold encode of the bench image's
+           PNG on cuda:0), every mark positive and its container equal to
+           encode_image's. The phase prints its wall time.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}.
@@ -1017,6 +1030,91 @@ def phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts):
     return counts
 
 
+def tool_lines(tag: str, fn, *args, **kw):
+    """Run a tool's function, printing what it prints behind `[12 tag]`;
+    returns its result."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    for line in buf.getvalue().splitlines():
+        print(f"[12 {tag}] {line}")
+    return out
+
+
+def phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts):
+    """12: the measurement tools on the card (see the module docstring).
+    Returns the (B3, B1, B2) launches of the phase's own process."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.encode import encode_image
+    from jxl_tpu_torch.core.io import write_image
+    from jxl_tpu_torch.tools import batch_scaling, bit_breakdown, epf_ab, profile_stages, rd_point
+    from jxl_tpu_torch.tools.make_test_images import synth_photo
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    h, w = img.shape[:2]
+    data = encode_image(img, CodecConfig(distance=1.0, effort=7), device=dev)
+
+    res = profile_stages.profile(img, dev)
+    print(f"[12 stages] {kind} ({smi}): median of 5 warm runs (host clock, synchronised); busy ms and kernels of one traced run")
+    tool_lines("stages", profile_stages.print_table, res, dev, h, w)
+    if res["bytes"] != data:
+        raise AssertionError("profile_stages' full-encode container differs from encode_image's")
+    for name, t in res["stages"].items():
+        if not (t["ms"] > 0 and t["busy_ms"] > 0 and t["kernels"] > 0):
+            raise AssertionError(f"stage {name}: {t}")
+
+    rows = tool_lines("batch", batch_scaling.scaling_rows, img, dev)
+    print(f"[12 batch] {kind} ({smi}): " + "; ".join(
+        f"B={b}: enc {e:.2f} / dec {d:.2f} / combined {c:.2f} MP/s" for b, e, d, c in rows
+    ))
+    if [r[0] for r in rows] != list(batch_scaling.BATCHES) or not all(v > 0 for r in rows for v in r[1:]):
+        raise AssertionError(f"batch_scaling rows {rows}")
+
+    dists = list(rd_point.DISTANCES)
+    pts = rd_point.rd_points({"bench": img, "synth0": synth_photo(h, w, seed=100)}, dists, 7, dev)
+    print(f"[12 rd_point] {json.dumps(pts)}")
+    _d, bpp, p = pts["bench"][dists.index(1.0)]
+    if abs(p - ANCHOR_PSNR_DB) > PSNR_TOL_DB or abs(bpp - ANCHOR_BPP) > BPP_TOL_REL * ANCHOR_BPP:
+        raise AssertionError(f"rd_point bench d=1: {p} dB / {bpp} bpp misses the anchor")
+
+    bd = bit_breakdown.breakdown(img, 1.0, 7, dev)
+    tool_lines("bit_breakdown", bit_breakdown.print_breakdown, bd, h, w, 1.0, 7)
+    sec, pay = bit_breakdown.payload_bits(bd)
+    if bd["data"] != data or abs(sec / pay - 1) > 1e-3:
+        raise AssertionError(f"bit_breakdown: sections {sec / 8:.1f} B against payload {pay / 8:.1f} B")
+
+    epf = tool_lines("epf_ab", epf_ab.epf_rows, {"bench": img}, [1.0, 4.0, 8.0], dev)
+    if not all(np.isfinite(r[3]) and np.isfinite(r[4]) and r[2] > 0 for r in epf):
+        raise AssertionError(f"epf_ab rows {epf}")
+    counts = read_counts()
+
+    tdir = os.path.join(SWEEP_DIR, "tools")
+    os.makedirs(tdir, exist_ok=True)
+    png, out = os.path.join(tdir, "bench.png"), os.path.join(tdir, "bench.jxt")
+    write_image(png, img)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "jxl_tpu_torch.tools.profile_startup", "--encode", png, "--device", "cuda:0", "--out", out],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"profile_startup failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    marks = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[12 startup] {json.dumps(marks)} (process wall {time.perf_counter() - t0:.2f} s)")
+    with open(out, "rb") as f:
+        if f.read() != data:
+            raise AssertionError("profile_startup's container differs from encode_image's")
+    if marks["device"] != smi or not all(v > 0 for v in marks["phase_s"].values()):
+        raise AssertionError(f"profile_startup marks {marks}")
+    print(f"[12 tools] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]} (this process); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1473,6 +1571,10 @@ def main() -> int:
 
     # ---- 11. the headline benchmark (bench_torch.py's body), host syncs, traces
     ne, n1, n2 = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+
+    # ---- 12. the measurement tools (jxl_tpu_torch/tools/)
+    ne, n1, n2 = phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts)
     n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
 
     def timing(t: dict) -> dict:

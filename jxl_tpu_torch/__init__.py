@@ -22,8 +22,9 @@ above the single-section cap (`codec.tiled`); the stable analysis entry
 encodes and the halo-exchange EPF (`distributed`, `bench --mesh`); the
 CLI, `python -m jxl_tpu_torch {encode,decode,serve,bench,compare}
 --device ...` (`cli.main`), with the persistent server (`cli.server`); the
-standalone interleaved rANS coder and the mantissa packers (`entropy`), and
-the binding of the native C++ core they are held to (`native`). Every
+standalone interleaved rANS coder and the mantissa packers (`entropy`), the
+binding of the native C++ core they are held to (`native`), and the
+measurement tools, `python -m jxl_tpu_torch.tools.<name>` (`tools`). Every
 public name of `jxl_tpu` has its counterpart here, apart from the TPU-only
 pieces that tests/test_torch_surface.py lists with their reasons.
 

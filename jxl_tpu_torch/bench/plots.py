@@ -14,12 +14,12 @@ import os
 from jxl_tpu_torch.bench.csv_schema import comparison_result_from_row, read_csv_rows
 
 
-def require_matplotlib() -> None:
-    """Raise RuntimeError unless matplotlib imports."""
+def require_matplotlib(what: str = "--graph") -> None:
+    """Raise RuntimeError (naming `what` needs it) unless matplotlib imports."""
     try:
         import matplotlib  # noqa: F401
     except ImportError as e:
-        raise RuntimeError("--graph needs matplotlib, which is not installed") from e
+        raise RuntimeError(f"{what} needs matplotlib, which is not installed") from e
 
 
 def _pyplot():

@@ -88,6 +88,8 @@ class EncoderKnobs:
     modular     modular-candidate mode: 0 off, 1 auto, 2 force
     hooka_eps   near-tie margin of the RD-gated hook A (HOMOGENEITY_RD_GATED)
     no_cluster  one table per context in the small-context (modular) modes
+    no_greedy   skip the greedy merge after the k-means clustering of the
+                lossy context set (JXL_TPU_CLUSTER_NO_GREEDY, a diagnostic)
     mod_q       (ky, kc, p) of the modular-lossy step law
     mod_rule    (byte_win, sse_tol, sse_win, byte_tol) of `_pick_mode`
     """
@@ -100,6 +102,7 @@ class EncoderKnobs:
     modular: int = 1
     hooka_eps: float = 0.02
     no_cluster: bool = False
+    no_greedy: bool = False
     mod_q: tuple = MOD_COEFS
     mod_rule: tuple = (0.5, 3.2, 0.5, 1.2)
 
@@ -117,6 +120,7 @@ def encoder_knobs() -> EncoderKnobs:
         modular=1 if mod is None or mod == "" else int(mod),
         hooka_eps=float(os.environ.get("JXL_TPU_HOOKA_EPS", "0.02")),
         no_cluster=bool(os.environ.get("JXL_TPU_NO_CLUSTER")),
+        no_greedy=bool(os.environ.get("JXL_TPU_CLUSTER_NO_GREEDY")),
         mod_q=_mod_coefs(),
         mod_rule=tuple(float(x) for x in rule.split(",")) if rule else EncoderKnobs.mod_rule,
     )
@@ -451,12 +455,14 @@ def tokens_from_rgb(
 
 def entropy_inputs(
     token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tensor, lay, lanes: int, cluster: bool = True,
+    greedy: bool = True,
 ):
     """K-pad the token stream per the layout's spans, histogram it under the
     per-step contexts, cluster + quantise the tables: k-means for the v8
-    lossy context set (more than K_CLUSTERS contexts), the greedy merge for
-    the small-context modular modes, or one table per context there when
-    not `cluster` (JXL_TPU_NO_CLUSTER).
+    lossy context set (more than K_CLUSTERS contexts; then the greedy merge
+    of its centres unless not `greedy`, JXL_TPU_CLUSTER_NO_GREEDY), the
+    greedy merge for the small-context modular modes, or one table per
+    context there when not `cluster` (JXL_TPU_NO_CLUSTER).
 
     Returns (tokp [T*lanes] int32, mantp [T*lanes] int32, rows [T, 128]
     int32, freq [n_ctx, A] int32): the rANS encode kernel's inputs and the
@@ -473,7 +479,7 @@ def entropy_inputs(
 
     counts = _histogram_stepped(tokp, step_ctx, lanes, n_ctx)
     if n_ctx > K_CLUSTERS:
-        cmap, ctables = cluster_histograms_kmeans(counts, k=K_CLUSTERS)
+        cmap, ctables = cluster_histograms_kmeans(counts, k=K_CLUSTERS, greedy=greedy)
         freq_k, _ = quantize_histograms_t(ctables)
         freq = freq_k[cmap]
     else:
@@ -485,13 +491,14 @@ def entropy_inputs(
 
 def _entropy_encode(
     token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tensor, lay, lanes: int, cluster: bool = True,
+    greedy: bool = True,
 ):
     """Entropy-code the token stream with the rANS encode kernel, leaving
     the results on the device: (freq [n_ctx, A], words [G, capw], mbytes
     [G, capm] back-filled buckets, states [lanes], wcounts [G], mcounts
     [G])."""
     T = lay["T"]
-    tokp, mantp, rows, freq = entropy_inputs(token, mant, step_ctx, lay, lanes, cluster)
+    tokp, mantp, rows, freq = entropy_inputs(token, mant, step_ctx, lay, lanes, cluster, greedy)
     capw, capm = enc_caps(T, lanes)
     words, mbytes, states, wcounts, mcounts = encode_grouped_cuda(
         tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm
@@ -629,7 +636,7 @@ def _encode_points_async(rgbs, config: CodecConfig, distances, orig_names, knobs
             rgb_t, cfg_d.distance, height=h, width=w, effort=int(config.effort),
             hook_a=config.strategy.hook_a, hook_b=config.strategy.hook_b, knobs=knobs,
         )
-        enc = _entropy_encode(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
+        enc = _entropy_encode(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes, greedy=not knobs.no_greedy)
         pending.append((cfg_d, name, params, enc))
     return _finalizer(h, w, lanes, lay, pending, modular=False)
 

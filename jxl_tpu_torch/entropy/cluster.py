@@ -109,10 +109,12 @@ def _merge_rounds(c: torch.Tensor, k: int, rounds: int = 5):
     return c, cmap
 
 
-def cluster_histograms_kmeans(counts: torch.Tensor, k: int = 64, iters: int = 6):
+def cluster_histograms_kmeans(counts: torch.Tensor, k: int = 64, iters: int = 6, greedy: bool = True):
     """counts [C, A] -> (cmap [C] int64 cluster ids in [0, k), ctables
     [k, A] int64 merged counts; rows of dead clusters are zero). Any symbol
-    that occurs in a member context keeps a positive centre count."""
+    that occurs in a member context keeps a positive centre count. Without
+    `greedy` (the reference's JXL_TPU_CLUSTER_NO_GREEDY diagnostic) the
+    Lloyd assignment and its rounded centres come back unmerged."""
     C, _A = counts.shape
     dev = counts.device
     cf = counts.to(torch.float32)
@@ -132,5 +134,7 @@ def cluster_histograms_kmeans(counts: torch.Tensor, k: int = 64, iters: int = 6)
         centers = update(assign(centers))
     groups = assign(centers)
     centers = update(groups)
+    if not greedy:
+        return groups, torch.round(centers).to(torch.int64)
     merged, inner_map = _merge_rounds(centers, k)
     return inner_map[groups], torch.round(merged).to(torch.int64)

@@ -68,10 +68,11 @@ def test_port_imports_no_jax():
         "jxl_tpu_torch.codec.tiled", "jxl_tpu_torch.codec.analysis", "jxl_tpu_torch.distributed.mesh",
         "jxl_tpu_torch.distributed.sharded", "jxl_tpu_torch.cli.server",
     } <= set(mods)
+    assert {f"jxl_tpu_torch.tools.{t}" for t in TOOLS} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'jxl_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'jxl_tpu', 'bench', 'tools'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -79,6 +80,54 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the port's counterparts of tools/*.py (jxl_tpu_torch/tools/)
+TOOLS = (
+    "make_test_images", "profile_stages", "profile_codec", "batch_scaling", "profile_startup", "rd_point",
+    "rd_tune", "rd_bound", "rd_position_corpus", "rd_position_report", "bit_breakdown", "epf_ab",
+    "modular_calib", "hooka_gated_ab", "ctx_study", "nnz_study", "combo_study",
+)
+# positional arguments a tool's command line needs
+TOOL_ARGS = {"rd_position_report": ["cur.json", "prev.json"]}
+
+
+def test_tool_outputs_default_under_benchmarks():
+    """Every tool that writes files defaults under benchmarks/tools/<tool>/
+    (git-ignored), and no default names a file git tracks."""
+    import importlib
+
+    from jxl_tpu_torch.tools import OUT_ROOT
+
+    writers = {}
+    for name in TOOLS:
+        mod = importlib.import_module(f"jxl_tpu_torch.tools.{name}")
+        if hasattr(mod, "OUT"):
+            writers[name] = os.path.realpath(mod.OUT)
+    assert set(writers) == {
+        "make_test_images", "batch_scaling", "profile_startup", "rd_position_corpus", "rd_position_report",
+        "epf_ab", "modular_calib", "hooka_gated_ab",
+    }
+    root = os.path.realpath(REPO)
+    for name, path in writers.items():
+        assert path.startswith(os.path.join(root, "benchmarks", "tools", name)), (name, path)
+        assert path.startswith(os.path.realpath(OUT_ROOT))
+        rel = os.path.relpath(path, root)
+        tracked = subprocess.run(["git", "ls-files", "--", rel], cwd=REPO, capture_output=True, text=True, timeout=60)
+        ignored = subprocess.run(["git", "check-ignore", "-q", rel], cwd=REPO, timeout=60)
+        assert tracked.returncode == 0 and tracked.stdout == "" and ignored.returncode == 0, (name, rel)
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_on_cuda_without_a_card_raises(name, monkeypatch):
+    """Asked for cuda:0 where CUDA is absent, a tool raises before any work:
+    nothing carries on on the CPU."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"jxl_tpu_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([*TOOL_ARGS.get(name, []), "--device", "cuda:0"])
 
 
 def test_chip_smoke_imports_no_jax():
