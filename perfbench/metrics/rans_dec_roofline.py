@@ -1,0 +1,15 @@
+"""The rANS decode kernel (B1, `csrc/rans_dec.cu`, both phases of each stream)'s share of its roofline, in per cent: the bytes its launches in
+the window must move (`yardstick.decode_bytes` at each stream's steps, lanes, words
+and mantissa bytes) over the peak memory rate, divided by the time its
+kernels (`rans_decode_kernel`) ran in the window."""
+
+from perfbench import streams, yardstick
+
+
+def read(trace):
+    kernels = trace.kernels("rans_decode_kernel")
+    if not kernels or not trace.containers:
+        return None
+    nbytes = sum(yardstick.decode_bytes(*streams.shape(c)) for c in trace.containers)
+    busy = yardstick.union_ns([(s, e) for _n, s, e in kernels])
+    return 100.0 * (nbytes / yardstick.PEAK_BW) / (busy / 1e9)
