@@ -180,16 +180,24 @@ def cmd_bench(args) -> int:
     dev = resolve_device(args.device)
     if not args.profile:
         return _cmd_bench_inner(args, cfg)
-    # torch.profiler trace of the whole sweep (Chrome trace format)
+    # torch.profiler trace of the whole sweep (Chrome trace format), with
+    # the codec's stage spans (recorded while the profiler runs) as a track
     from torch.profiler import ProfilerActivity, profile
 
+    from jxl_tpu_torch.utils import trace
+
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    trace.drain()
     with profile(activities=acts) as prof:
         rc = _cmd_bench_inner(args, cfg)
     os.makedirs(args.profile, exist_ok=True)
     path = os.path.join(args.profile, "trace.json")
     prof.export_chrome_trace(path)
+    n_dropped = trace.dropped()
+    spans_path = trace.add_to_chrome_trace(path, trace.drain(), n_dropped)
     print(f"[bench] profiler trace written to {path}")
+    if spans_path != path:
+        print(f"[bench] stage spans written to {spans_path}")
     return rc
 
 
@@ -315,7 +323,10 @@ def main(argv=None) -> int:
         help="encode image batches across a mesh of --device slots, e.g. 'data=4' or 'data=4,space=2' (images over "
         "data, width over space)",
     )
-    pb.add_argument("--profile", default=None, metavar="DIR", help="write a torch.profiler Chrome trace of the sweep into DIR")
+    pb.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the sweep, with the codec's stage spans as a track, into DIR",
+    )
     _add_device_arg(pb)
     _add_codec_args(pb)
     pb.set_defaults(fn=cmd_bench)

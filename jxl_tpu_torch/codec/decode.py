@@ -23,6 +23,10 @@ there on CUDA. A striped JXTS container (magic `JXTS`) goes from
 `decode_bytes[_device]` / `decode_file` to `codec/tiled.py`, which decodes
 its sections here (`decode_stream_planes` for the VarDCT ones) and
 stitches them.
+
+Stage spans (`utils/trace.py`): a decode is a span `decode` holding
+`decode.read` (container parse and uploads), `decode.scan` (both rANS
+phases) and `decode.reconstruct`.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from jxl_tpu_torch.transforms.adaptive import QF_LEVELS, qf_multiplier
 from jxl_tpu_torch.transforms.dct import idct2d, inverse_zigzag_order, permute_last
 from jxl_tpu_torch.transforms.epf import epf_apply
 from jxl_tpu_torch.transforms.quant import ac_recon_bias, dc_steps_t
+from jxl_tpu_torch.utils import trace
 
 _SQRT2 = float(np.sqrt(2.0))
 
@@ -303,22 +308,26 @@ def _padded_values(streams, dev: torch.device, scan) -> torch.Tensor:
     B = len(streams)
     lay = _layout(h)
     t_a, T = lay["t_a"], lay["T"]
-    capw = max(1, max(int(s.wcounts.max()) for s in streams))
-    capm = max(1, max(int(s.mcounts.max()) for s in streams))
-    bufs = [_stream_buffers(s, capw, capm) for s in streams]
-    words_g = torch.from_numpy(np.concatenate([b[0] for b in bufs])).to(dev)
-    mant_g = torch.from_numpy(np.concatenate([b[1] for b in bufs])).to(dev)
-    states = torch.from_numpy(np.stack([np.asarray(s.states, np.int64) for s in streams])).to(dev)
-    freqs = [torch.from_numpy(np.asarray(s.freq, np.int64)).to(dev).to(torch.int32) for s in streams]
-    cums = [exclusive_cumsum(f, dim=1) for f in freqs]
-    ptrs = torch.zeros((2, B * G), dtype=torch.int32, device=dev)
+    with trace.span("decode.read"):
+        capw = max(1, max(int(s.wcounts.max()) for s in streams))
+        capm = max(1, max(int(s.mcounts.max()) for s in streams))
+        bufs = [_stream_buffers(s, capw, capm) for s in streams]
+        words_g = torch.from_numpy(np.concatenate([b[0] for b in bufs])).to(dev)
+        mant_g = torch.from_numpy(np.concatenate([b[1] for b in bufs])).to(dev)
+        states = torch.from_numpy(np.stack([np.asarray(s.states, np.int64) for s in streams])).to(dev)
+        freqs = [torch.from_numpy(np.asarray(s.freq, np.int64)).to(dev).to(torch.int32) for s in streams]
+        step_ctx_a = torch.from_numpy(lay["step_ctx"][:t_a]).to(dev)
 
-    step_ctx_a = torch.from_numpy(lay["step_ctx"][:t_a]).to(dev)
-    rows_a = torch.stack([kernel_rows(step_ctx_a, f, c) for f, c in zip(freqs, cums)], dim=1)
-    vals_a, st, ptrs = scan(words_g, mant_g, states, rows_a, ptrs, T=t_a, lanes=lanes)
-    rows_b = [kernel_rows(_phase_b_ctx(vals_a[i], s.header, lay), freqs[i], cums[i]) for i, s in enumerate(streams)]
-    vals_b, _st, _ptrs = scan(words_g, mant_g, st, torch.stack(rows_b, dim=1), ptrs, T=T - t_a, lanes=lanes)
-    return torch.cat([vals_a, vals_b], dim=1)
+    with trace.span("decode.scan"):
+        cums = [exclusive_cumsum(f, dim=1) for f in freqs]
+        ptrs = torch.zeros((2, B * G), dtype=torch.int32, device=dev)
+        rows_a = torch.stack([kernel_rows(step_ctx_a, f, c) for f, c in zip(freqs, cums)], dim=1)
+        vals_a, st, ptrs = scan(words_g, mant_g, states, rows_a, ptrs, T=t_a, lanes=lanes)
+        rows_b = [
+            kernel_rows(_phase_b_ctx(vals_a[i], s.header, lay), freqs[i], cums[i]) for i, s in enumerate(streams)
+        ]
+        vals_b, _st, _ptrs = scan(words_g, mant_g, st, torch.stack(rows_b, dim=1), ptrs, T=T - t_a, lanes=lanes)
+        return torch.cat([vals_a, vals_b], dim=1)
 
 
 def _unpad(values_p: torch.Tensor, lay) -> torch.Tensor:
@@ -326,6 +335,7 @@ def _unpad(values_p: torch.Tensor, lay) -> torch.Tensor:
     return torch.cat([values_p[..., dst : dst + n_real] for _c, dst, n_real, _p in lay["spans"]], dim=-1)
 
 
+@trace.traced("decode")
 def decode_values(stream: JxtStream, device) -> torch.Tensor:
     """The decoded value stream [n_tokens] int32 (K-padding removed) of a
     container: both rANS phases (kernel B1), on `device`."""
@@ -334,6 +344,7 @@ def decode_values(stream: JxtStream, device) -> torch.Tensor:
     return _unpad(values_p, _layout(stream.header))
 
 
+@trace.traced("decode")
 def decode_values_grid(streams, device) -> torch.Tensor:
     """The decoded value streams [N, n_tokens] int32 of a uniform row of
     containers (same height, width, lanes and coding family): both rANS
@@ -355,6 +366,7 @@ def _palette(stream: JxtStream, dev: torch.device):
     return torch.from_numpy(pal).to(dev)
 
 
+@trace.traced("decode.reconstruct")
 def _reconstruct_stream(values: torch.Tensor, stream: JxtStream) -> torch.Tensor:
     """A stream's decoded values -> RGB u8 [H, W, 3] on values' device."""
     h = stream.header
@@ -387,12 +399,15 @@ def decode_stream_planes(stream: JxtStream, *, device):
     )
 
 
+@trace.traced("decode")
 def decode_bytes_device(data: bytes, *, device) -> torch.Tensor:
     """Decode container bytes (a single section, or a striped JXTS
     container) to an RGB u8 [H, W, 3] tensor on `device`."""
     if is_striped(data):
         return decode_striped_device(data, device=device)
-    return decode_stream_device(read_container(data), device=device)
+    with trace.span("decode.read"):
+        stream = read_container(data)
+    return decode_stream_device(stream, device=device)
 
 
 def decode_bytes(data: bytes, *, device) -> np.ndarray:
@@ -424,6 +439,7 @@ def _uniform_row(streams) -> bool:
     )
 
 
+@trace.traced("decode")
 def decode_bytes_grid_stacked(datas, *, device):
     """Decode a grid row (container bytes of same-geometry streams, such as
     one image's RD-sweep points) to an RGB u8 [N, H, W, 3] tensor on
@@ -437,7 +453,8 @@ def decode_bytes_grid_stacked(datas, *, device):
     VarDCT row."""
     if any(is_striped(b) for b in datas):
         return None
-    streams = [read_container(b) for b in datas]
+    with trace.span("decode.read"):
+        streams = [read_container(b) for b in datas]
     if not _uniform_row(streams):
         return None
     values = decode_values_grid(streams, device)

@@ -25,6 +25,13 @@ there on CUDA (the DCTs and the k-means cost matrix stay full float32).
 The kernel's buckets go straight to container bytes: one device-to-host
 copy each of the counts, words, mantissa bytes, states and tables.
 
+Stage spans (`utils/trace.py`), recorded while a torch.profiler session
+or a `trace.Recorder` is active: `encode` (a dispatch: upload and set-up),
+inside it `encode.front_end` (`tokens_from_rgb`), `encode.acs`,
+`encode.decide` (each read-back of a decision to the host), `encode.epf`,
+`encode.entropy` and `encode.screen`; then `encode.finalize` (copies to
+the host, mode pick, container assembly), a root of the same request.
+
 Entry points: `encode_image` (one image), `encode_image_grid[_async]`
 (one image over an RD-sweep row of distances), `encode_images_batched_async`
 (same-geometry lossy images) and `encode_images` (a list of jobs). Every
@@ -64,6 +71,7 @@ from jxl_tpu_torch.transforms.adaptive import QF_CENTER_IDX, qf_multiplier, quan
 from jxl_tpu_torch.transforms.dct import permute_last, zigzag_order
 from jxl_tpu_torch.transforms.epf import epf_apply
 from jxl_tpu_torch.transforms.quant import ac_recon_bias, dc_steps_t, dequant_ac_biased
+from jxl_tpu_torch.utils import trace
 
 K_CLUSTERS = 64  # max signalled cluster tables
 
@@ -268,6 +276,7 @@ def _small_hist_bits(v: torch.Tensor, levels: int) -> torch.Tensor:
     return torch.sum(_entropy_bits(torch.sum(oh, dim=1)))
 
 
+@trace.traced("encode.front_end")
 def tokens_from_rgb(
     rgb: torch.Tensor, distance: float, *, height: int, width: int, effort: int = 7,
     hook_a: int = 0, hook_b: bool = False, knobs: EncoderKnobs | None = None,
@@ -309,10 +318,11 @@ def tokens_from_rgb(
     qf_mul = qf_multiplier(qf_idx)
 
     def one_pass(bit_lut):
-        acs, raw, qsteps = search_acs(
-            blocks, planes_p, distance, effort=effort, qf_mul=qf_mul,
-            hook_a=hook_a, hook_b=hook_b, hooka_eps=knobs.hooka_eps, bit_lut=bit_lut,
-        )
+        with trace.span("encode.acs"):
+            acs, raw, qsteps = search_acs(
+                blocks, planes_p, distance, effort=effort, qf_mul=qf_mul,
+                hook_a=hook_a, hook_b=hook_b, hooka_eps=knobs.hooka_eps, bit_lut=bit_lut,
+            )
 
         def quant(v, steps, channel):
             if effort >= 5:
@@ -352,7 +362,8 @@ def tokens_from_rgb(
             n_ = F.pad(dcq, (0, 0, 1, 0))[:, :-1, :]
             nw_ = F.pad(dcq, (1, 0, 1, 0))[:, :-1, :-1]
             res_all = torch.stack([dcq, dcq - w_, dcq - w_ - n_ + nw_])
-            dc_mode = int(torch.argmin(torch.sum(_bits_proxy(res_all), dim=(1, 2, 3))))
+            with trace.span("encode.decide"):
+                dc_mode = int(torch.argmin(torch.sum(_bits_proxy(res_all), dim=(1, 2, 3))))
             dc_res = res_all[dc_mode]
         else:
             dc_mode = 2
@@ -364,7 +375,8 @@ def tokens_from_rgb(
             """Causal residuals when they proxy-cost less than the raw ids."""
             raw_ids = v.reshape(-1).to(torch.int32)
             res = zigzag_map(predict_lcol(v).reshape(-1))
-            on = bool(torch.sum(_bits_proxy(res)) < torch.sum(_bits_proxy(raw_ids)))
+            with trace.span("encode.decide"):
+                on = bool(torch.sum(_bits_proxy(res)) < torch.sum(_bits_proxy(raw_ids)))
             return (res if on else raw_ids), int(on)
 
         acs_tok, acs_on = map_field(acs)
@@ -384,7 +396,8 @@ def tokens_from_rgb(
         qmap = qb.reshape(3, nby, nbx)
         qres = zigzag_map(torch.stack([predict_lcol(qmap[c]) for c in range(3)]).reshape(3, -1))
         sig = torch.minimum(_small_hist_bits(qb, NNZ_Q), _small_hist_bits(qres, 2 * NNZ_Q))
-        nnz_cond_on = bool((h_cond + sig + knobs.nnz_margin) < h_marg)
+        with trace.span("encode.decide"):
+            nnz_cond_on = bool((h_cond + sig + knobs.nnz_margin) < h_marg)
         if knobs.nnz_force is not None:
             nnz_cond_on = knobs.nnz_force
         q_final = qb if nnz_cond_on else torch.zeros_like(qb)
@@ -392,7 +405,8 @@ def tokens_from_rgb(
         qf3 = q_final.reshape(3, nby, nbx)
         nnz_res = zigzag_map(torch.stack([predict_lcol(qf3[c]) for c in range(3)]).reshape(-1))
         nnz_raw = q_final.reshape(-1).to(torch.int32)
-        nnz_on = bool(torch.sum(_bits_proxy(nnz_res)) < torch.sum(_bits_proxy(nnz_raw)))
+        with trace.span("encode.decide"):
+            nnz_on = bool(torch.sum(_bits_proxy(nnz_res)) < torch.sum(_bits_proxy(nnz_raw)))
         nnz_tok = nnz_res if nnz_on else nnz_raw
 
         perm = bucket_perm(q_final, nb)
@@ -420,31 +434,32 @@ def tokens_from_rgb(
         token, nbits, mant, params, q_sorted, _c4, values = one_pass(_bits_lut_grid(counts4.sum(dim=2)))
 
     if effort >= 3:
-        # adaptive EPF: filter only when the decoder-side reconstruction
-        # (merged groups as sub-8 slots, 2x2-pooled) gets closer to the
-        # source by a 0.4% SSE margin
-        dec_params = (
-            (params & 3) | 0b100 | (((params >> 2) & 1) << 3)
-            | (((params >> 3) & 1) << 4) | (((params >> 4) & 1) << 5)
-        )
-        rec_planes, eff_mul = _reconstruct(
-            values, distance, dec_params, height=height, width=width,
-            epf=False, return_planes=True, skip_merged=True,
-        )
-        filtered = epf_apply(rec_planes, eff_mul, distance)
-        h2, w2 = (height // 2) * 2, (width // 2) * 2
+        with trace.span("encode.epf"):
+            # adaptive EPF: filter only when the decoder-side reconstruction
+            # (merged groups as sub-8 slots, 2x2-pooled) gets closer to the
+            # source by a 0.4% SSE margin
+            dec_params = (
+                (params & 3) | 0b100 | (((params >> 2) & 1) << 3)
+                | (((params >> 3) & 1) << 4) | (((params >> 4) & 1) << 5)
+            )
+            rec_planes, eff_mul = _reconstruct(
+                values, distance, dec_params, height=height, width=width,
+                epf=False, return_planes=True, skip_merged=True,
+            )
+            filtered = epf_apply(rec_planes, eff_mul, distance)
+            h2, w2 = (height // 2) * 2, (width // 2) * 2
 
-        def pool(p):
-            return p[:, :h2, :w2].reshape(3, h2 // 2, 2, w2 // 2, 2).mean(dim=(2, 4))
+            def pool(p):
+                return p[:, :h2, :w2].reshape(3, h2 // 2, 2, w2 // 2, 2).mean(dim=(2, 4))
 
-        img_pooled = pool(img.permute(2, 0, 1)).permute(1, 2, 0)
+            img_pooled = pool(img.permute(2, 0, 1)).permute(1, 2, 0)
 
-        def rgb_err(p):
-            q = pool(p)
-            srgb = xyb_to_srgb(torch.stack([q[0], q[1], q[2] + q[1]], dim=-1))
-            return torch.sum((srgb - img_pooled) ** 2)
+            def rgb_err(p):
+                q = pool(p)
+                srgb = xyb_to_srgb(torch.stack([q[0], q[1], q[2] + q[1]], dim=-1))
+                return torch.sum((srgb - img_pooled) ** 2)
 
-        epf_bit = int(bool(rgb_err(filtered) < 0.996 * rgb_err(rec_planes)))
+            epf_bit = int(bool(rgb_err(filtered) < 0.996 * rgb_err(rec_planes)))
     else:
         epf_bit = 1
     if knobs.epf_force is not None:
@@ -489,6 +504,7 @@ def entropy_inputs(
     return tokp, mantp, rows, freq
 
 
+@trace.traced("encode.entropy")
 def _entropy_encode(
     token: torch.Tensor, mant: torch.Tensor, step_ctx: torch.Tensor, lay, lanes: int, cluster: bool = True,
     greedy: bool = True,
@@ -579,6 +595,7 @@ def _assemble_container(
     return write_container(stream)
 
 
+@trace.traced("encode.screen")
 def _modular_candidate(rgb: np.ndarray, mode: int) -> bool:
     """Host pre-screen: could the modular path beat VarDCT on this image?
     The fraction of pixels equal to both their west and north neighbours
@@ -753,6 +770,7 @@ def _upload(rgb, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)).to(dev)
 
 
+@trace.traced("encode")
 def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device):
     """Dispatch the encode of an RGB u8 [H, W, 3] image on `device` now;
     returns finalize() -> JXT container bytes.
@@ -763,7 +781,10 @@ def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = ""
     `config.modular`, flat synthetic content (`_modular_candidate`) is
     also coded modular-lossy and `_pick_mode` keeps one of the two. As in
     encode_image_grid_async, the device work runs before this returns;
-    finalize() does the picks and the container assembly."""
+    finalize() does the picks and the container assembly.
+
+    The dispatch is a span `encode` and finalize() a span `encode.finalize`
+    of the same request (`utils/trace.py`), as in every `*_async` encode."""
     h, w = int(rgb.shape[0]), int(rgb.shape[1])
     _check_size(h, w)
     knobs = encoder_knobs()
@@ -774,7 +795,7 @@ def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = ""
         plain_fin = _modular_async(rgb_t, config, orig_name, knobs)
         pal_res = _palette_of(rgb) if config.modular else None
         if pal_res is None:
-            return plain_fin
+            return trace.bind("encode.finalize", plain_fin)
         pal, idx = pal_res
         pal_fin = _palette_async(idx, pal, config, orig_name, knobs, dev)
 
@@ -782,13 +803,13 @@ def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = ""
             plain_b, pal_b = plain_fin(), pal_fin()
             return pal_b if len(pal_b) < len(plain_b) else plain_b
 
-        return finalize_ll
+        return trace.bind("encode.finalize", finalize_ll)
     config = replace(config, distance=max(float(config.distance), 0.05))
     var_fin = _encode_points_async([rgb_t], config, [config.distance], [orig_name], knobs)
     if not (config.modular and _modular_candidate(rgb, knobs.modular)):
-        return lambda: var_fin()[0]
+        return trace.bind("encode.finalize", lambda: var_fin()[0])
     mod_fin = _modular_async(rgb_t, config, orig_name, knobs)
-    return lambda: _pick_mode(rgb_t, var_fin()[0], mod_fin(), knobs.mod_rule)
+    return trace.bind("encode.finalize", lambda: _pick_mode(rgb_t, var_fin()[0], mod_fin(), knobs.mod_rule))
 
 
 def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, device) -> bytes:
@@ -797,6 +818,7 @@ def encode_image(rgb: np.ndarray, config: CodecConfig, orig_name: str = "", *, d
     return encode_image_async(rgb, config, orig_name, device=device)()
 
 
+@trace.traced("encode")
 def encode_image_grid_async(rgb: np.ndarray, config: CodecConfig, distances, orig_name: str = "", *, device):
     """Encode one image at every distance of an RD-sweep row; returns
     finalize() -> list of container bytes (one per distance, same order),
@@ -817,13 +839,13 @@ def encode_image_grid_async(rgb: np.ndarray, config: CodecConfig, distances, ori
     n = len(distances)
     var_fin = _encode_points_async([rgb_t] * n, config, distances, [orig_name] * n, knobs)
     if not (config.modular and _modular_candidate(rgb, knobs.modular)):
-        return var_fin
+        return trace.bind("encode.finalize", var_fin)
     mod_fin = _modular_grid_async(rgb_t, config, distances, orig_name, knobs)
 
     def finalize() -> list:
         return [_pick_mode(rgb_t, v, m, knobs.mod_rule) for v, m in zip(var_fin(), mod_fin())]
 
-    return finalize
+    return trace.bind("encode.finalize", finalize)
 
 
 def encode_image_grid(rgb: np.ndarray, config: CodecConfig, distances, orig_name: str = "", *, device) -> list:
@@ -831,6 +853,7 @@ def encode_image_grid(rgb: np.ndarray, config: CodecConfig, distances, orig_name
     return encode_image_grid_async(rgb, config, distances, orig_name, device=device)()
 
 
+@trace.traced("encode")
 def encode_images_batched_async(rgbs, config: CodecConfig, distances=None, orig_names=None, *, device):
     """Encode a batch of same-geometry images (lossy VarDCT only, no mode
     pick, as in the reference); returns finalize() -> list of container
@@ -851,7 +874,8 @@ def encode_images_batched_async(rgbs, config: CodecConfig, distances=None, orig_
         orig_names = [""] * len(batch)
     _check_size(h, w)
     dev = resolve_device(device)
-    return _encode_points_async([_upload(r, dev) for r in batch], config, distances, orig_names, encoder_knobs())
+    fin = _encode_points_async([_upload(r, dev) for r in batch], config, distances, orig_names, encoder_knobs())
+    return trace.bind("encode.finalize", fin)
 
 
 def encode_images(jobs, *, device) -> list:

@@ -1,0 +1,9 @@
+"""Milliseconds per round trip of the program's `encode.epf` self time in the
+window: the adaptive-EPF decision: its reconstruction, filter and two errors; the
+span less its child spans (`perfbench/program_spans.py`)."""
+
+from perfbench import program_spans
+
+
+def read(trace):
+    return program_spans.self_ms_per_unit(trace, "encode.epf")

@@ -169,7 +169,9 @@ def test_bench_torch_imports_no_jax():
 
 
 @pytest.mark.parametrize(
-    "path", ["chip_smoke.py", "bench_torch.py", os.path.join("probes", "rans_kernels.py"), os.path.join("probes", "mesh_devices.py")]
+    "path",
+    ["chip_smoke.py", "bench_torch.py", os.path.join("probes", "rans_kernels.py"), os.path.join("probes", "mesh_devices.py"),
+     os.path.join("probes", "stage_table.py")],
 )
 def test_card_script_names_resolve(path):
     """The scripts that run only on the card import here, and every name they
