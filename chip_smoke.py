@@ -8,7 +8,7 @@ printing a line of its own; any miss raises, so the exit code is nonzero
 and no result line is printed:
 
 1. card:   nvidia-smi name / power limit and torch's device name;
-2. build:  the rANS sources and the chain probe (jxl_tpu_torch/csrc/*.cu),
+2. build:  the rANS sources, the screen and the chain probe (csrc/*.cu),
            one nvcc each, in parallel, timed; then the probe's SM cycles
            per link of each dependent chain of the scans on this card
            (kernel_bounds.measure_chain_cycles), which the chain bounds
@@ -35,8 +35,17 @@ and no result line is printed:
            size (past B3's default mantissa cap: the wrapper must relaunch
            with grown caps); whether B3 relaunched is printed for each; bit
            for bit, timed (plain versions one call each);
+3d. the pre-screen kernel (csrc/screen.cu) at 4032x3024, on a photo and
+           on graphics, at 4097x4096 (stride 4) and at 768x512: its count
+           must equal the plain version's on the card and on the CPU;
+           timed with CUDA events (mean of 20 launches, the launch alone
+           and the whole screen_count with its zero fill and read-back)
+           beside its bound (the frame read once at 3.35 TB/s), the plain
+           version's host time, and the plain version on the card (wall,
+           busy time, kernels, bytes allocated) against screen_count's;
 4. main path, single image: encode_image + decode_bytes at d=1 e7 on the
-           card; the kernels must have run (launch counts), PSNR / bpp must
+           card; the kernels must have run (launch counts, the screen
+           exactly once, as in each 4b row), PSNR / bpp must
            match the quality anchor, and the card's pixels must be within
            1 LSB of the plain path on the CPU;
 4b. main path, the sweep row: encode_image_grid + decode_bytes_grid_stacked
@@ -404,7 +413,7 @@ def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
     (12 images of 512x768 x RUST_DISTANCES x BASELINE and
     HOMOGENEITY_PARTITIONING at e7); the CSVs against the schema, the
     kernels' launches, every image's d = 1 point re-decoded and re-scored
-    on the CPU, the times. Returns the sweep's (B3, B1, B2) launches."""
+    on the CPU, the times. Returns the sweep's (B3, B1, B2, screen) launches."""
     from jxl_tpu_torch.bench.csv_schema import COMPARISON_DIFF_HEADER, COMPARISON_RESULT_HEADER, IMAGE_FILE_DATA_HEADER
     from jxl_tpu_torch.bench.sweep import TIMINGS_HEADER
     from jxl_tpu_torch.codec.decode import decode_file
@@ -421,7 +430,7 @@ def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
     ]
     reset_counts()
     wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "sweep.log"))
-    ne, n1, n2 = read_counts()
+    ne, n1, n2, ns = read_counts()
     n_pts = len(images) * len(RUST_DISTANCES)
     if ne < 2 * n_pts or n1 < 1 or n2 < 2:
         raise AssertionError(f"sweep launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= {2 * n_pts}, >= 1, >= 2)")
@@ -508,14 +517,14 @@ def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
         f"(CUDA events, 10 runs, peak {peak_gb:.2f} GB), plain path on the CPU {bat_cpu_ms:.0f} ms (one call); "
         "row within the bars card vs CPU"
     )
-    return ne, n1, n2
+    return ne, n1, n2, ns
 
 
 def phase_legacy(torch, dev, reset_counts, read_counts):
     """6b: the legacy stages and the effort axis on synth02.png: d in
     {0, 1, 3} x e5-e9 with --decompress --compare-images; d = 0 exact (PSNR
     inf), the decompressed PNGs read back equal to the decoded pixels.
-    Returns the (B3, B1, B2) launches."""
+    Returns the (B3, B1, B2, screen) launches."""
     from jxl_tpu_torch.bench.sweep import DECOMPRESSION_HEADER
     from jxl_tpu_torch.codec.decode import decode_file
     from jxl_tpu_torch.core.io import read_png_rgb8
@@ -531,7 +540,7 @@ def phase_legacy(torch, dev, reset_counts, read_counts):
     ]
     reset_counts()
     wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "legacy.log"))
-    ne, n1, n2 = read_counts()
+    ne, n1, n2, ns = read_counts()
     base = os.path.join(bench_dir, "0", "synth02", "BASELINE")
     comps = read_csv(os.path.join(base, "results", "comparisons.csv"))[1:]
     dec = read_csv(os.path.join(base, "results", "decompressed.csv"))
@@ -557,7 +566,7 @@ def phase_legacy(torch, dev, reset_counts, read_counts):
             f"e{e}: " + ", ".join(f"d={float(r[2]):g} {r[5]} B {float(r[11]):.2f} dB" for r in rows) for e, rows in by_e.items()
         )
     )
-    return ne, n1, n2
+    return ne, n1, n2, ns
 
 
 def section_headers(data: bytes) -> list:
@@ -585,7 +594,7 @@ def seam_check(striped: np.ndarray, naive: np.ndarray, seams: list, expect_diffe
 
 def phase_striped_small(torch, dev, img, reset_counts, read_counts):
     """7: striped containers at the bench size, held to the CPU. Returns the
-    (B3, B1, B2) launches of the card's encodes and decodes."""
+    (B3, B1, B2, screen) launches of the card's encodes and decodes."""
     from jxl_tpu_torch.bench.headline import synth_kodak
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.decode import decode_bytes
@@ -650,7 +659,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
     """7b: the striped path above the single-section cap, through
     encode_file and decode_bytes_device; then B3 and B1 on one stripe's
     stream at 1024 lanes against their plain versions. Returns the
-    (B3, B1, B2) launches of the main path and the kernels' readings."""
+    (B3, B1, B2, screen) launches of the main path and the kernels' readings."""
     from jxl_tpu_torch.bench.headline import synth_kodak
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.container import MAX_PIXELS
@@ -688,7 +697,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     dec_peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    ne, n1, n2 = read_counts()
+    ne, n1, n2, ns = read_counts()
 
     hdrs = section_headers(data)
     if not is_striped(data) or len(data) != size or len(hdrs) != n:
@@ -742,12 +751,12 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
         f"{r['dec_plain_ms']:.0f} ms)"
     )
     torch.cuda.empty_cache()
-    return (ne, n1, n2), r
+    return (ne, n1, n2, ns), r
 
 
 def phase_mesh(torch, dev, img, reset_counts, read_counts):
     """8: the mesh paths on slots of the one card, each against its
-    sequential form. Returns the (B3, B1, B2) launches of the mesh calls."""
+    sequential form. Returns the (B3, B1, B2, screen) launches of the mesh calls."""
     from dataclasses import replace
 
     from jxl_tpu_torch.codec.config import CodecConfig
@@ -882,7 +891,7 @@ def phase_standalone(torch, dev, kind, smi, reset_counts, read_counts):
     """10: the standalone interleaved rANS coder and the bit packer at the
     bench image's stream size, on the card, against the port on the CPU and
     the native C++ core, bit for bit; the card decodes its own stream. No
-    kernel may launch. Returns the (B3, B1, B2) launches of the phase."""
+    kernel may launch. Returns the (B3, B1, B2, screen) launches of the phase."""
     from jxl_tpu_torch.entropy import rans as tr
     from jxl_tpu_torch.entropy import tokens as tt
     from jxl_tpu_torch.native import bindings
@@ -918,8 +927,8 @@ def phase_standalone(torch, dev, kind, smi, reset_counts, read_counts):
     (pw_c, _bits), pack_card = timed(lambda: tt.pack_bits(nbits_c, mant_c, cap), True)
     unpacked, unpack_card = timed(lambda: tt.unpack_bits(nbits_c, pw_c), True)
     counts_run = read_counts()
-    if counts_run != (0, 0, 0):
-        raise AssertionError(f"the standalone coder launched kernels: B3, B1, B2 = {counts_run}")
+    if counts_run != (0, 0, 0, 0):
+        raise AssertionError(f"the standalone coder launched kernels: B3, B1, B2, screen = {counts_run}")
 
     (w_h, nw_h, st_h), enc_cpu = timed(lambda: tr.rans_encode(tok, ctx, freq, cum, lanes, device="cpu"), False)
     back_h, dec_cpu = timed(lambda: tr.rans_decode(w_h, st_h, ctx, freq, cum, n, lanes, device="cpu"), False)
@@ -963,7 +972,7 @@ def phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts):
     held to the quality anchor and to B1 / B2 / B3 launches; the host syncs
     of one e7 encode; traced e8 / d = 0 encodes, the d = 0 decode and a
     sweep row's battery.
-    Returns the (B3, B1, B2) launches of the phase."""
+    Returns the (B3, B1, B2, screen) launches of the phase."""
     from jxl_tpu_torch.bench.headline import headline, traced
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.decode import decode_bytes_device, decode_bytes_grid_stacked
@@ -1025,7 +1034,7 @@ def phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts):
             raise AssertionError(f"trace {name} out of range: {t}")
     print(f"[11 trace] {kind} ({smi}): " + "; ".join(f"{k}: {json.dumps(v)}" for k, v in rows.items()))
     counts = read_counts()
-    print(f"[11 headline] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}; the phase took "
+    print(f"[11 headline] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]}; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -1046,7 +1055,7 @@ def tool_lines(tag: str, fn, *args, **kw):
 
 def phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts):
     """12: the measurement tools on the card (see the module docstring).
-    Returns the (B3, B1, B2) launches of the phase's own process."""
+    Returns the (B3, B1, B2, screen) launches of the phase's own process."""
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.encode import encode_image
     from jxl_tpu_torch.core.io import write_image
@@ -1110,9 +1119,75 @@ def phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts):
             raise AssertionError("profile_startup's container differs from encode_image's")
     if marks["device"] != smi or not all(v > 0 for v in marks["phase_s"].values()):
         raise AssertionError(f"profile_startup marks {marks}")
-    print(f"[12 tools] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]} (this process); the phase took "
+    print(f"[12 tools] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]} (this process); "
+          f"the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def phase_screen(torch, dev, smi) -> dict:
+    """Phase 3d: the pre-screen kernel against its plain version, timed at
+    4032x3024, 4097x4096 and 768x512; beside it the plain version on the
+    card, as `screen_count` would run it there without the kernel: wall,
+    kernel time, kernels and the memory it allocates. Returns the photo's
+    timings at 4032x3024 for the kernels JSON."""
+    from jxl_tpu_torch.bench.headline import PEAK_BW, traced
+    from jxl_tpu_torch.codec.screen import _launch, screen_count, screen_plain, screen_stride
+    from jxl_tpu_torch.tools.make_test_images import synth_graphics, synth_photo
+
+    def extra_bytes(fn) -> int:
+        """Device bytes fn allocates above what is held when it starts."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    photo = None
+    for name, (hh, ww), make in (
+        ("photo", (3024, 4032), synth_photo), ("graphics", (3024, 4032), synth_graphics),
+        ("graphics", (4097, 4096), synth_graphics), ("photo", (512, 768), synth_photo),
+    ):
+        frame = torch.from_numpy(np.ascontiguousarray(make(hh, ww, 0)))
+        on_card = frame.to(dev)
+        s = screen_stride(hh, ww)
+        n0 = screen_count.launches
+        count, n = screen_count(on_card)
+        if screen_count.launches != n0 + 1:
+            raise AssertionError(f"screen_count launched {screen_count.launches - n0} kernels, expected 1")
+        t0 = time.perf_counter()
+        plain = screen_plain(frame, s)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_card = screen_plain(on_card, s)
+        if not count == plain == plain_card:
+            raise AssertionError(f"screen {name} {hh}x{ww}: kernel {count}, plain {plain} (CPU), {plain_card} (card)")
+        acc = torch.zeros(1, dtype=torch.int64, device=dev)
+        ms = cuda_ms(torch, lambda: _launch(on_card, s, acc), 20)
+        if int(acc.item()) != 21 * count:
+            raise AssertionError(f"screen {name}: 21 launches added {int(acc.item())}, expected {21 * count}")
+        whole_ms = cuda_ms(torch, lambda: screen_count(on_card), 20)
+        plain_card_ms = cuda_ms(torch, lambda: screen_plain(on_card, s), 20)
+        _c, kt = traced(lambda: screen_count(on_card), dev, 1)
+        _c, pt = traced(lambda: screen_plain(on_card, s), dev, 1)
+        k_mb, p_mb = (extra_bytes(f) / 1e6 for f in (lambda: screen_count(on_card), lambda: screen_plain(on_card, s)))
+        nbytes = 3 * -(-hh // s) * ww  # every s-th row, read whole (a pixel every 3 s bytes)
+        bound_ms = 1e3 * nbytes / PEAK_BW
+        print(
+            f"[3d screen] {name} {hh}x{ww} stride {s}: {count} of {n} positions ({count / n:.4f}), kernel = plain "
+            f"(card and CPU); kernel {1e3 * ms:.2f} us (mean of 20 launches), screen_count with its fill and "
+            f"read-back {1e3 * whole_ms:.1f} us; bound {1e3 * bound_ms:.2f} us ({nbytes / 1e6:.2f} MB at "
+            f"{PEAK_BW / 1e12:.2f} TB/s, {100 * bound_ms / ms:.1f}%); plain on the host {plain_ms:.1f} ms ({smi})"
+        )
+        print(
+            f"[3d screen vs plain on the card] {name} {hh}x{ww}: screen_count wall {kt['wall_ms']:.3f} ms "
+            f"(busy {1e3 * kt['busy_ms']:.1f} us, {kt['kernels']} kernels, {k_mb:.2f} MB allocated); screen_plain "
+            f"on the card wall {pt['wall_ms']:.3f} ms (busy {1e3 * pt['busy_ms']:.1f} us, {pt['kernels']} kernels, "
+            f"{p_mb:.2f} MB allocated; {1e3 * plain_card_ms:.1f} us a call, CUDA-event mean of 20)"
+        )
+        if photo is None:
+            photo = dict(ms=ms, bound_ms=bound_ms, whole_ms=whole_ms, plain_ms=plain_ms)
+    return photo
 
 
 def main() -> int:
@@ -1155,6 +1230,7 @@ def main() -> int:
     )
     from jxl_tpu_torch.codec.layout import lossless_layout, padded_layout, token_layout
     from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens, modular_steps
+    from jxl_tpu_torch.codec.screen import screen_count
     from jxl_tpu_torch.core.device import resolve_device
     from jxl_tpu_torch.core.io import read_png_rgb8
     from jxl_tpu_torch.cuda_build import BUILD_LOGS, build
@@ -1167,17 +1243,21 @@ def main() -> int:
         encode_grouped_cuda.launches = 0
         decode_grouped_cuda.launches = 0
         decode_grouped_batched_cuda.launches = 0
+        screen_count.launches = 0
 
     def read_counts():
-        """(B3, B1, B2) launches since reset_counts(), after the card is done."""
+        """(B3, B1, B2, screen) launches since reset_counts(), after the card is done."""
         torch.cuda.synchronize()
-        return encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches
+        return (
+            encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches,
+            screen_count.launches,
+        )
 
     resolve_device(dev)
 
     # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    sources = ("rans_dec", "rans_enc", "chain_probe")
+    sources = ("rans_dec", "rans_enc", "screen", "chain_probe")
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         list(ex.map(build, sources))
     build_s = time.perf_counter() - t0
@@ -1333,22 +1413,23 @@ def main() -> int:
             f"B1 {r['dec']['ms']:.3f} ms (plain {r['dec_plain_ms']:.1f} ms)"
         )
 
-    # ---- 4. main path, single image
-    encode_grouped_cuda.launches = 0
-    decode_grouped_cuda.launches = 0
+    # ---- 3d. the pre-screen kernel
+    screen_t = phase_screen(torch, dev, smi)
+
+    # ---- 4. main path, single image (the counts of phase 3d's timing loops are dropped here)
+    reset_counts()
     data = encode_image(img, cfg, device=dev)
     out = decode_bytes(data, device=dev)
-    torch.cuda.synchronize()
-    n_enc, n_dec = encode_grouped_cuda.launches, decode_grouped_cuda.launches
-    if n_enc < 1 or n_dec < 2:
-        raise AssertionError(f"main path launches: encode {n_enc}, decode {n_dec} (want >= 1, >= 2)")
+    n_enc, n_dec, _n2, n_scr = read_counts()
+    if n_enc < 1 or n_dec < 2 or n_scr != 1:
+        raise AssertionError(f"main path launches: encode {n_enc}, decode {n_dec}, screen {n_scr} (want >= 1, >= 2, 1)")
     if out.shape != img.shape or out.dtype != np.uint8:
         raise AssertionError(f"decoded {out.shape} {out.dtype}, expected {img.shape} uint8")
     q_db = psnr(img, out)
     bpp = len(data) * 8 / (h * w)
     print(
         f"[4 main path] {len(data)} bytes, {bpp:.4f} bpp, PSNR {q_db:.4f} dB "
-        f"(anchor {ANCHOR_PSNR_DB} dB at {ANCHOR_BPP} bpp); launches encode {n_enc}, decode {n_dec}"
+        f"(anchor {ANCHOR_PSNR_DB} dB at {ANCHOR_BPP} bpp); launches encode {n_enc}, decode {n_dec}, screen {n_scr}"
     )
     if abs(q_db - ANCHOR_PSNR_DB) > PSNR_TOL_DB:
         raise AssertionError(f"PSNR {q_db:.4f} dB not within {PSNR_TOL_DB} dB of {ANCHOR_PSNR_DB}")
@@ -1367,17 +1448,17 @@ def main() -> int:
     n_b2 = 0
     for strat in Strategy:
         cfg_s = CodecConfig(effort=7, strategy=strat)
-        encode_grouped_cuda.launches = 0
-        decode_grouped_cuda.launches = 0
-        decode_grouped_batched_cuda.launches = 0
+        reset_counts()
         datas = encode_image_grid(img, cfg_s, RUST_DISTANCES, device=dev)
         out = decode_bytes_grid_stacked(datas, device=dev)
-        torch.cuda.synchronize()
-        ne, n1, n2 = encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches
-        if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0:
-            raise AssertionError(f"{strat.name} row launches: encode {ne}, B2 {n2}, B1 {n1} (want >= 10, 2, 0)")
+        ne, n1, n2, ns = read_counts()
+        if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0 or ns != 1:
+            raise AssertionError(
+                f"{strat.name} row launches: encode {ne}, B2 {n2}, B1 {n1}, screen {ns} (want >= 10, 2, 0, 1)"
+            )
         n_enc += ne
         n_b2 += n2
+        n_scr += ns
         if out is None or tuple(out.shape) != (len(RUST_DISTANCES), h, w, 3):
             raise AssertionError(f"{strat.name} row decoded to {None if out is None else tuple(out.shape)}")
         streams = [read_container(b) for b in datas]
@@ -1390,7 +1471,7 @@ def main() -> int:
         out_np = out.cpu().numpy()
         q_row = [psnr(img, o) for o in out_np]
         print(
-            f"[4b {strat.name}] launches encode {ne}, B2 {n2}, B1 {n1}; "
+            f"[4b {strat.name}] launches encode {ne}, B2 {n2}, B1 {n1}, screen {ns}; "
             + ", ".join(f"d={d}: {len(b)} B {q:.4f} dB" for d, b, q in zip(RUST_DISTANCES, datas, q_row))
         )
         if strat is Strategy.BASELINE:
@@ -1412,10 +1493,10 @@ def main() -> int:
         reset_counts()
         data_e = encode_image(img, CodecConfig(distance=1.0, effort=effort), device=dev)
         out_e = decode_bytes(data_e, device=dev)
-        ne, n1, n2 = read_counts()
+        ne, n1, n2, ns = read_counts()
         if ne < 1 or n1 < 2 or n2 != 0:
             raise AssertionError(f"e{effort} launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= 1, >= 2, 0)")
-        n_enc, n_dec = n_enc + ne, n_dec + n1
+        n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
         lsb_e = int(np.abs(out_e.astype(np.int32) - decode_bytes(data_e, device="cpu")).max())
         if lsb_e > 1:
             raise AssertionError(f"e{effort}: card vs CPU pixels differ by {lsb_e} LSB (> 1)")
@@ -1434,10 +1515,10 @@ def main() -> int:
         reset_counts()
         d0 = encode_image(im, CodecConfig(distance=0.0), device=dev)
         out0 = decode_bytes(d0, device=dev)
-        ne, n1, n2 = read_counts()
+        ne, n1, n2, ns = read_counts()
         if ne < 1 or n1 < 2:
             raise AssertionError(f"{name} d=0 launches: B3 {ne}, B1 {n1} (want >= 1, >= 2)")
-        n_enc, n_dec = n_enc + ne, n_dec + n1
+        n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
         if not np.array_equal(out0, im):
             raise AssertionError(f"{name} d=0 does not round-trip exactly")
         s0 = read_container(d0)
@@ -1450,8 +1531,8 @@ def main() -> int:
 
     reset_counts()
     picks = encode_image_grid(synth, CodecConfig(effort=7), RUST_DISTANCES, device=dev)
-    ne, n1, n2 = read_counts()
-    n_enc, n_dec = n_enc + ne, n_dec + n1
+    ne, n1, n2, ns = read_counts()
+    n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
     if ne < 2 * len(RUST_DISTANCES) or n1 < 4 * len(RUST_DISTANCES):
         raise AssertionError(f"synth02 grid pick launches: B3 {ne}, B1 {n1} (want >= 20, >= 40)")
     print(
@@ -1467,10 +1548,10 @@ def main() -> int:
     reset_counts()
     mrow = _modular_grid_async(synth_t, CodecConfig(), RUST_DISTANCES, "", knobs)()
     mout = decode_bytes_grid_stacked(mrow, device=dev)
-    ne, n1, n2 = read_counts()
+    ne, n1, n2, ns = read_counts()
     if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0:
         raise AssertionError(f"modular row launches: B3 {ne}, B2 {n2}, B1 {n1} (want >= 10, 2, 0)")
-    n_enc, n_b2 = n_enc + ne, n_b2 + n2
+    n_enc, n_b2, n_scr = n_enc + ne, n_b2 + n2, n_scr + ns
     mstreams = [read_container(b) for b in mrow]
     mvals = decode_values_grid(mstreams, dev)
     errs = []
@@ -1547,8 +1628,8 @@ def main() -> int:
         lambda: phase_sweep(torch, dev, kind, smi, reset_counts, read_counts),
         lambda: phase_legacy(torch, dev, reset_counts, read_counts),
     ):
-        ne, n1, n2 = phase()
-        n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+        ne, n1, n2, ns = phase()
+        n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
 
     # ---- 7 / 7b. striped JXTS; 8. mesh; 9. serve
     big = {}
@@ -1562,20 +1643,20 @@ def main() -> int:
         striped_full,
         lambda: phase_mesh(torch, dev, img, reset_counts, read_counts),
     ):
-        ne, n1, n2 = phase()
-        n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+        ne, n1, n2, ns = phase()
+        n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
     phase_serve(torch, dev, kind, smi, img)
 
     # ---- 10. the standalone coder and the bit packer (no kernel on this path)
     phase_standalone(torch, dev, kind, smi, reset_counts, read_counts)
 
     # ---- 11. the headline benchmark (bench_torch.py's body), host syncs, traces
-    ne, n1, n2 = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
-    n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+    ne, n1, n2, ns = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
 
     # ---- 12. the measurement tools (jxl_tpu_torch/tools/)
-    ne, n1, n2 = phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts)
-    n_enc, n_dec, n_b2 = n_enc + ne, n_dec + n1, n_b2 + n2
+    ne, n1, n2, ns = phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
 
     def timing(t: dict) -> dict:
         """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""
@@ -1605,6 +1686,11 @@ def main() -> int:
             "plain_ms": enc_plain_ms, **timing(b3["enc"]), "lanes1024": {
                 "plain_ms": big["kernels"]["enc_plain_ms"], **timing(big["kernels"]["enc"]),
             },
+        },
+        {
+            "name": "screen", "route": "cuda", "source": "jxl_tpu_torch/csrc/screen.cu", "replaces": None,
+            "launches": n_scr, "max_abs_err": 0, "plain_ms": screen_t["plain_ms"],
+            "ms": screen_t["ms"], "bound_ms": screen_t["bound_ms"], "bound_by": "bytes", "library_ms": None,
         },
     ]
     print(smi)

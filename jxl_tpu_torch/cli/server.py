@@ -120,7 +120,7 @@ def serve(socket_path: str | None = None, *, device, warm: bool = True) -> int:
         if dev.type == "cuda":
             from jxl_tpu_torch.cuda_build import load
 
-            for name in ("rans_dec", "rans_enc"):
+            for name in ("rans_dec", "rans_enc", "screen"):
                 load(name)
     try:
         os.unlink(socket_path)

@@ -12,9 +12,11 @@ Modular (d = 0 lossless, modular-lossy, palette; `codec/lossless.py`):
   YCoCg-R (or palette indices) -> per-channel predictor -> activity
   classes -> tokens -> the same entropy tail with the greedy histogram
   merge over its 12 contexts. A lossy encode of flat synthetic content
-  (`_modular_candidate`) codes both families and keeps one by measured
-  bytes and error (`_pick_mode`); a d = 0 encode of <= 256 colours codes
-  the palette too and keeps the smaller.
+  (`_modular_candidate`, a pre-screen over the uploaded frame: the screen
+  kernel of `codec/screen.py` on a GPU, one count read back) codes both
+  families and keeps one by measured bytes and error (`_pick_mode`); a
+  d = 0 encode of <= 256 colours codes the palette too and keeps the
+  smaller.
 
 All per-pixel and per-symbol work runs as torch ops on the given device;
 the rANS encode is the CUDA kernel of `entropy/cuda_rans_enc.py` on a GPU
@@ -29,8 +31,9 @@ Stage spans (`utils/trace.py`), recorded while a torch.profiler session
 or a `trace.Recorder` is active: `encode` (a dispatch: upload and set-up),
 inside it `encode.front_end` (`tokens_from_rgb`), `encode.acs`,
 `encode.decide` (each read-back of a decision to the host), `encode.epf`,
-`encode.entropy` and `encode.screen`; then `encode.finalize` (copies to
-the host, mode pick, container assembly), a root of the same request.
+`encode.entropy` and `encode.screen` (the pre-screen's launch and its
+read-back); then `encode.finalize` (copies to the host, mode pick,
+container assembly), a root of the same request.
 
 Entry points: `encode_image` (one image), `encode_image_grid[_async]`
 (one image over an RD-sweep row of distances), `encode_images_batched_async`
@@ -59,6 +62,7 @@ from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import MAX_PIXELS, JxtHeader, JxtStream, write_container
 from jxl_tpu_torch.codec.layout import CTX_AC_BASE, NNZ_EDGES, NNZ_Q, lossless_layout, padded_layout, token_layout
 from jxl_tpu_torch.codec.lossless import MOD_COEFS, _mod_coefs, ll_step_ctx, lossless_tokens
+from jxl_tpu_torch.codec.screen import screen_count
 from jxl_tpu_torch.core.device import resolve_device
 from jxl_tpu_torch.core.xyb import srgb_to_xyb, xyb_to_srgb
 from jxl_tpu_torch.entropy.cluster import _entropy_bits, cluster_histograms, cluster_histograms_kmeans
@@ -596,22 +600,23 @@ def _assemble_container(
 
 
 @trace.traced("encode.screen")
-def _modular_candidate(rgb: np.ndarray, mode: int) -> bool:
-    """Host pre-screen: could the modular path beat VarDCT on this image?
-    The fraction of pixels equal to both their west and north neighbours
-    (~0 on photographic content, large on text / graphics)."""
+def _modular_candidate(rgb, mode: int) -> bool:
+    """Pre-screen: could the modular path beat VarDCT on this image? The
+    share of pixels equal to both their west and north neighbours (~0 on
+    photographic content, large on text / graphics), from `screen_count`
+    on the frame's device: a CUDA tensor runs the screen kernel and reads
+    back one count; a host array runs the plain count on the CPU."""
     if mode == 0:
         return False
     if mode >= 2:
         return True
-    a = np.asarray(rgb)
-    if a.ndim != 3 or a.shape[0] < 2 or a.shape[1] < 2:
-        return False
-    if a.shape[0] * a.shape[1] > (1 << 24):
-        a = a[::4, ::4]
-    eqw = (a[:, 1:] == a[:, :-1]).all(axis=2)
-    eqn = (a[1:, :] == a[:-1, :]).all(axis=2)
-    return float(np.mean(eqw[1:, :] & eqn[:, 1:])) >= 0.12
+    if not isinstance(rgb, torch.Tensor):
+        a = np.asarray(rgb)
+        if a.ndim != 3 or a.shape[2] != 3:
+            return False
+        rgb = torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8))  # as `_upload` casts
+    count, n = screen_count(rgb)
+    return n > 0 and count / n >= 0.12
 
 
 def _check_size(h: int, w: int):
@@ -806,7 +811,7 @@ def encode_image_async(rgb: np.ndarray, config: CodecConfig, orig_name: str = ""
         return trace.bind("encode.finalize", finalize_ll)
     config = replace(config, distance=max(float(config.distance), 0.05))
     var_fin = _encode_points_async([rgb_t], config, [config.distance], [orig_name], knobs)
-    if not (config.modular and _modular_candidate(rgb, knobs.modular)):
+    if not (config.modular and _modular_candidate(rgb_t, knobs.modular)):
         return trace.bind("encode.finalize", lambda: var_fin()[0])
     mod_fin = _modular_async(rgb_t, config, orig_name, knobs)
     return trace.bind("encode.finalize", lambda: _pick_mode(rgb_t, var_fin()[0], mod_fin(), knobs.mod_rule))
@@ -838,7 +843,7 @@ def encode_image_grid_async(rgb: np.ndarray, config: CodecConfig, distances, ori
     rgb_t = _upload(rgb, dev)
     n = len(distances)
     var_fin = _encode_points_async([rgb_t] * n, config, distances, [orig_name] * n, knobs)
-    if not (config.modular and _modular_candidate(rgb, knobs.modular)):
+    if not (config.modular and _modular_candidate(rgb_t, knobs.modular)):
         return trace.bind("encode.finalize", var_fin)
     mod_fin = _modular_grid_async(rgb_t, config, distances, orig_name, knobs)
 

@@ -2,9 +2,10 @@
 
 Each source has a plain C interface and is compiled on first use with
 nvcc for sm_90a into a shared library under the repository's `build/cuda/`
-directory, then loaded with ctypes. The library name carries a hash of the
-source and the flags, so an edited kernel is rebuilt and an unchanged one
-is reused. Nothing is built when the package is imported.
+directory, then loaded with ctypes. The library name carries a hash of
+the source and the flags, so an edited kernel is rebuilt and an unchanged
+one is reused. Nothing is built when the package is imported.
+`check_tensor` validates the tensors the kernels' wrappers pass.
 """
 
 from __future__ import annotations
@@ -58,6 +59,19 @@ def build(name: str) -> Path:
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     BUILD_LOGS[name] = proc.stdout + proc.stderr
     return out
+
+
+def check_tensor(name: str, t, dtype, shape, device):
+    """Raise ValueError unless t has the dtype, shape (None = any extent),
+    device and contiguity the kernels take."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
 @lru_cache(maxsize=None)

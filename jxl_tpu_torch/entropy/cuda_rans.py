@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from jxl_tpu_torch.cuda_build import check_tensor
 from jxl_tpu_torch.entropy.grouped import GROUP, decode_grouped, decode_grouped_batched, n_groups
 
 
@@ -41,19 +42,6 @@ def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
 def i32_to_u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> int64 values in [0, 2^32)."""
     return x.to(torch.int64) & 0xFFFFFFFF
-
-
-def check_tensor(name: str, t: torch.Tensor, dtype, shape, device: torch.device):
-    """Raise ValueError unless t has the dtype, shape (None = any extent),
-    device and contiguity the kernels take."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _launch(symbol: str, words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int, B: int):

@@ -24,7 +24,8 @@ import ctypes
 
 import torch
 
-from jxl_tpu_torch.entropy.cuda_rans import check_tensor, i32_to_u32
+from jxl_tpu_torch.cuda_build import check_tensor
+from jxl_tpu_torch.entropy.cuda_rans import i32_to_u32
 from jxl_tpu_torch.entropy.grouped import (
     GROUP,
     MAX_NBYTES,

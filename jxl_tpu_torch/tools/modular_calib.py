@@ -8,7 +8,7 @@ distance grid, both coding paths' measured (bytes, PSNR, SSE):
     `encode._modular_grid_async`)
 
 and which path the shipped dominance rule (the `_pick_mode` constants,
-JXL_TPU_MOD_RULE) selects, plus whether the host pre-screen
+JXL_TPU_MOD_RULE) selects, plus whether the pre-screen
 (`_modular_candidate`, JXL_TPU_MODULAR) would have tried the modular path
 at all. (The reference set JXL_TPU_MODULAR=0 for its VarDCT arm before
 computing the screen, so its `candidate` column always read false; here

@@ -9,10 +9,11 @@ attributed:
   python -m jxl_tpu_torch.tools.profile_startup                   # encode of the bench image
 
 Phases: import torch, import the port, device context (on CUDA the first
-allocation creates it), first tiny launch, the rANS kernels' build or load
-(`cuda_build.load`; nothing to build on the CPU, where the plain versions
-run), read the input, first and second encode / decode, write the output
-(under benchmarks/tools/profile_startup/ unless --out). Prints one JSON
+allocation creates it), first tiny launch, the kernels' build or load
+(rANS and screen, `cuda_build.load`; nothing to build on the CPU,
+where the plain versions run), read the input, first and second encode /
+decode, write the output (under benchmarks/tools/profile_startup/ unless
+--out). Prints one JSON
 line: {"total_s", "phase_s": {phase: seconds since the previous mark},
 "device": the card's name and power limit, or "cpu"}.
 """
@@ -63,6 +64,7 @@ def main(argv=None):
 
         load("rans_enc")
         load("rans_dec")
+        load("screen")
     mark("kernel_build_or_load")
 
     if encode_mode:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from jxl_tpu_torch.codec.screen import screen_count, screen_plain, screen_stride
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
 from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched, kernel_rows
@@ -560,3 +561,69 @@ def test_standalone_coder_on_card_matches_cpu(dev, lanes):
     assert torch.equal(tt.unpack_bytes(nbits, mbytes).cpu(), mant.cpu().long())
     torch.cuda.synchronize()
     assert (encode_grouped_cuda.launches, decode_grouped_cuda.launches) == (e0, d0)
+
+
+def _graphics(h: int, w: int, seed: int) -> np.ndarray:
+    """Screen-like content of any size: a flat page, a flat box, a bar and
+    a band that differ from the page in one channel only, and a patch of
+    0/1 noise."""
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 230, np.uint8)
+    img[h // 8 : h // 3, w // 10 : 9 * w // 10] = (20, 30, 40)
+    img[:, w // 2 : w // 2 + 2, 2] = 231
+    img[h // 2 : h // 2 + 3, :, 0] = 229
+    img[2 * h // 3 :, : w // 3] = rng.integers(0, 2, (h - 2 * h // 3, w // 3, 3), dtype=np.uint8)
+    return img
+
+
+SCREEN_CONTENT = {
+    "random": lambda h, w, seed: np.random.default_rng(seed).integers(0, 2, (h, w, 3), dtype=np.uint8),
+    "photo": _photo,
+    "graphics": _graphics,
+    "flat": lambda h, w, seed: np.full((h, w, 3), seed % 256, np.uint8),
+}
+
+
+@pytest.mark.parametrize("content", list(SCREEN_CONTENT))
+@pytest.mark.parametrize("h,w", [(3024, 4032), (512, 768), (4097, 4096), (2, 2), (1, 64)])
+def test_screen_kernel_matches_plain(dev, h, w, content):
+    """The screen kernel's count equals the plain version's, on the CPU and
+    on the card, one launch a frame with a position to count (4097x4096 is
+    screened at stride 4)."""
+    img = torch.from_numpy(SCREEN_CONTENT[content](h, w, seed=h + w))
+    want = screen_count(img)
+    n0 = screen_count.launches
+    got = screen_count(img.to(dev))
+    assert got == want
+    assert screen_count.launches == n0 + (want[1] > 0)
+    if want[1] > 0:
+        assert screen_plain(img.to(dev), screen_stride(h, w)) == want[0]
+    if content == "flat":
+        assert want[0] == want[1]
+
+
+def test_screen_rejects_what_the_kernel_does_not_take(dev):
+    img = torch.zeros((64, 96, 3), dtype=torch.uint8, device=dev)
+    n0 = screen_count.launches
+    for bad in (img.transpose(0, 1), img.float(), img[..., 0].contiguous(), torch.zeros_like(img[..., :2])):
+        with pytest.raises(ValueError):
+            screen_count(bad)
+    assert screen_count.launches == n0
+
+
+def test_encode_launches_the_screen_once(dev):
+    """One encode_image on the card runs the screen through the kernel,
+    once; the pre-screen on the card decides as on the CPU (a photo is no
+    modular candidate, graphics are)."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container
+    from jxl_tpu_torch.codec.encode import _modular_candidate, encode_image
+
+    n0 = screen_count.launches
+    data = encode_image(_card_image(), CodecConfig(distance=1.0, effort=7), device=dev)
+    assert screen_count.launches == n0 + 1
+    assert not read_container(data).header.lossless
+    for img, want in ((_card_image(), False), (_graphics(96, 128, seed=4), True)):
+        assert _modular_candidate(img, 1) is want
+        assert _modular_candidate(torch.from_numpy(img).to(dev), 1) is want
+    assert screen_count.launches == n0 + 3

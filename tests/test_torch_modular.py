@@ -36,6 +36,7 @@ from jxl_tpu_torch.codec import lossless as tll
 from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import read_container
 from jxl_tpu_torch.codec.layout import lossless_layout
+from jxl_tpu_torch.codec.screen import screen_count
 from jxl_tpu_torch.entropy import cluster as tcl
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 
@@ -257,6 +258,110 @@ def test_mode_env_honoured(monkeypatch, mode):
     assert read_container(got).header.lossless == read_container(ref).header.lossless
     if mode == "2":
         print(f"forced candidate: modular kept {read_container(got).header.lossless}")
+
+
+def _numpy_screen(rgb) -> tuple:
+    """The numpy screen the port ran on the host before the count moved to
+    torch, written out: (hits, positions, candidate at mode 1)."""
+    a = np.asarray(rgb)
+    if a.ndim != 3 or a.shape[0] < 2 or a.shape[1] < 2:
+        return 0, 0, False
+    if a.shape[0] * a.shape[1] > (1 << 24):
+        a = a[::4, ::4]
+    eqw = (a[:, 1:] == a[:, :-1]).all(axis=2)
+    eqn = (a[1:, :] == a[:-1, :]).all(axis=2)
+    hits = eqw[1:, :] & eqn[:, 1:]
+    return int(hits.sum()), hits.size, float(np.mean(hits)) >= 0.12
+
+
+def _blocks_11x11(n_blocks: int) -> np.ndarray:
+    """11x11 pixels, all distinct, but for `n_blocks` flat 2x2 blocks apart
+    from each other: each gives one pixel equal to both its west and north
+    neighbours, so n_blocks hits of the 10 x 10 positions."""
+    v = np.arange(121).reshape(11, 11)
+    img = np.stack([v, np.ones_like(v), np.full_like(v, 7)], axis=-1).astype(np.uint8)
+    for i in range(n_blocks):
+        r, c = 3 * (i // 4), 3 * (i % 4)
+        img[r : r + 2, c : c + 2] = (200, i, 9)
+    return img
+
+
+def _odd_frame() -> np.ndarray:
+    img = make_test_image(37, 53, seed=3)
+    img[5:30, 10:40] = (200, 100, 50)
+    return img
+
+
+def _big_frame() -> np.ndarray:
+    """4097x4096 (just over 2^24 pixels: screened at stride 4), a flat page
+    with a patch of 0/1 noise."""
+    img = np.full((4097, 4096, 3), 230, np.uint8)
+    img[1000:3000, 500:3500] = np.random.default_rng(11).integers(0, 2, (2000, 3000, 3), dtype=np.uint8)
+    return img
+
+
+SCREEN_FRAMES = {
+    "photo": lambda: make_test_image(96, 128, seed=9),
+    "graphics": lambda: synth_graphics(),
+    "flat": lambda: np.full((40, 56, 3), 77, np.uint8),
+    "1xW": lambda: make_test_image(1, 64, seed=1),
+    "Hx1": lambda: np.full((48, 1, 3), 5, np.uint8),
+    "2x2": lambda: np.full((2, 2, 3), 5, np.uint8),
+    "odd_37x53": _odd_frame,
+    "12_of_100": lambda: _blocks_11x11(12),
+    "11_of_100": lambda: _blocks_11x11(11),
+    "stride4_4097x4096": _big_frame,
+}
+SCREEN_WANT = {  # (hits, positions, candidate) where the case pins them
+    "1xW": (0, 0, False),
+    "Hx1": (0, 0, False),
+    "2x2": (1, 1, True),
+    "12_of_100": (12, 100, True),
+    "11_of_100": (11, 100, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SCREEN_FRAMES))
+def test_screen_count_matches_numpy_rule(monkeypatch, case):
+    """The plain torch screen (a CPU tensor's path) gives the old numpy
+    rule's count, positions and decision, through `screen_count` and
+    through `_modular_candidate` on a host array, and the reference's
+    decision; no kernel launches."""
+    monkeypatch.delenv("JXL_TPU_MODULAR", raising=False)
+    img = SCREEN_FRAMES[case]()
+    want = _numpy_screen(img)
+    assert jenc._modular_candidate(img) == want[2]
+    if case in SCREEN_WANT:
+        assert want == SCREEN_WANT[case]
+    if case.startswith("stride4"):
+        assert want[1] == 1024 * 1023
+    n0 = screen_count.launches
+    count, n = screen_count(torch.from_numpy(img))
+    assert (count, n, n > 0 and count / n >= 0.12) == want
+    assert te._modular_candidate(img, 1) == want[2]
+    assert te._modular_candidate(torch.from_numpy(img), 1) == want[2]
+    assert screen_count.launches == n0
+
+
+@pytest.mark.parametrize("case", ["int64", "float64", "gray_2d", "rgba"])
+def test_screen_host_array_forms(monkeypatch, case):
+    """A host array of another dtype is screened as `_upload` casts it to
+    u8, and one that is not [H, W, 3] is no candidate, as in the
+    reference."""
+    monkeypatch.delenv("JXL_TPU_MODULAR", raising=False)
+    g = synth_graphics()
+    arr = {
+        "int64": g.astype(np.int64),
+        "float64": g.astype(np.float64) + 0.25,
+        "gray_2d": g[..., 0],
+        "rgba": np.concatenate([g, g[..., :1]], axis=-1),
+    }[case]
+    want = _numpy_screen(np.ascontiguousarray(arr, dtype=np.uint8))[2] if arr.ndim == 3 and arr.shape[2] == 3 else False
+    assert te._modular_candidate(arr, 1) == want
+    if case.startswith(("int", "float")):
+        assert want and jenc._modular_candidate(arr)
+    elif case == "gray_2d":
+        assert not jenc._modular_candidate(arr)
 
 
 def test_cross_decode_exact():
