@@ -26,7 +26,8 @@ stitches them.
 
 Stage spans (`utils/trace.py`): a decode is a span `decode` holding
 `decode.read` (container parse and uploads), `decode.scan` (both rANS
-phases) and `decode.reconstruct`.
+phases) and `decode.reconstruct`; a striped container adds a
+`decode.stitch` per VarDCT run (`codec/tiled.py`).
 """
 
 from __future__ import annotations
@@ -393,10 +394,11 @@ def decode_stream_planes(stream: JxtStream, *, device):
     as Y-residual, eff_mul [nby, nbx]) on `device`: what the striped
     decoder (codec/tiled.py) stitches before its one EPF pass."""
     h = stream.header
-    return _reconstruct(
-        decode_values(stream, device), h.distance, h.decode_params, height=h.height, width=h.width,
-        epf=False, return_planes=True,
-    )
+    values = decode_values(stream, device)
+    with trace.span("decode.reconstruct"):
+        return _reconstruct(
+            values, h.distance, h.decode_params, height=h.height, width=h.width, epf=False, return_planes=True
+        )
 
 
 @trace.traced("decode")

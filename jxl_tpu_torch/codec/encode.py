@@ -29,7 +29,8 @@ copy each of the counts, words, mantissa bytes, states and tables.
 
 Stage spans (`utils/trace.py`), recorded while a torch.profiler session
 or a `trace.Recorder` is active: `encode` (a dispatch: upload and set-up),
-inside it `encode.front_end` (`tokens_from_rgb`), `encode.acs`,
+inside it `encode.front_end` (`tokens_from_rgb`), `encode.acs` (holding
+`encode.homogeneity` under the thesis's hooks),
 `encode.decide` (each read-back of a decision to the host), `encode.epf`,
 `encode.entropy` and `encode.screen` (the pre-screen's launch and its
 read-back); then `encode.finalize` (copies to the host, mode pick,

@@ -34,6 +34,7 @@ from jxl_tpu_torch.codec.container import MAX_DIM, MAX_PIXELS, _check, read_cont
 from jxl_tpu_torch.core.device import resolve_device
 from jxl_tpu_torch.core.xyb import xyb_to_srgb
 from jxl_tpu_torch.transforms.epf import epf_apply
+from jxl_tpu_torch.utils import trace
 
 STRIPED_MAGIC = b"JXTS"
 STRIPED_VERSION = 1
@@ -106,6 +107,7 @@ def is_striped(data: bytes) -> bool:
     return data[:4] == STRIPED_MAGIC
 
 
+@trace.traced("encode")
 def encode_image_striped(
     rgb: np.ndarray, config: CodecConfig, n_stripes: int | None = None, orig_name: str = "", *, device
 ) -> bytes:
@@ -122,7 +124,10 @@ def encode_image_striped(
     The reference sends equal-width lossy stripes through a depth-2
     pipeline of batched dispatches, which hides its upload time; the
     port's batch encode is byte-identical to `encode_images`, so one loop
-    over `encode_images` gives the same sections for every stripe layout."""
+    over `encode_images` gives the same sections for every stripe layout.
+
+    The call is one span `encode` (`utils/trace.py`): the screen and every
+    stripe's stages and finalize are its children, one request."""
     from jxl_tpu_torch.codec.encode import _modular_candidate, encode_images, encoder_knobs
 
     rgb = np.asarray(rgb)
@@ -198,7 +203,9 @@ def decode_striped_device(data: bytes, *, device) -> torch.Tensor:
     in plane space and gets its own EPF pass, applied when the majority of
     the run's sections signal EPF (at a VarDCT / modular boundary the edge
     is replicated, as at the image border). Raises ValueError when the
-    sections disagree on the distance."""
+    sections disagree on the distance. Each run's concatenation, EPF pass
+    and colour transform are the span `decode.stitch`; each section's
+    pre-EPF reconstruction is a `decode.reconstruct`."""
     from jxl_tpu_torch.codec.decode import decode_bytes_device, decode_stream_planes
 
     dev = resolve_device(device)
@@ -228,13 +235,14 @@ def decode_striped_device(data: bytes, *, device) -> torch.Tensor:
             planes_parts.append(planes)
             mul_parts.append(eff_mul)
             j += 1
-        planes = torch.cat(planes_parts, dim=-1)
-        rgb_parts.append(
-            _stitch_finish(
-                planes, torch.cat(mul_parts, dim=-1), d0, height=height, width=planes.shape[-1],
-                epf=epf_votes * 2 > (j - i),
+        with trace.span("decode.stitch"):
+            planes = torch.cat(planes_parts, dim=-1)
+            rgb_parts.append(
+                _stitch_finish(
+                    planes, torch.cat(mul_parts, dim=-1), d0, height=height, width=planes.shape[-1],
+                    epf=epf_votes * 2 > (j - i),
+                )
             )
-        )
         i = j
     return torch.cat(rgb_parts, dim=1)[:, :width]
 

@@ -34,6 +34,7 @@ from jxl_tpu_torch.strategy.homogeneity import (
 )
 from jxl_tpu_torch.transforms.dct import dct2d, idct2d
 from jxl_tpu_torch.transforms.quant import ac_steps_t
+from jxl_tpu_torch.utils import trace
 
 ACS_DCT16X16 = 4
 ACS_DCT32X32 = 5
@@ -220,7 +221,10 @@ def search_acs(
       the argmin's winner. Merge decisions use the cost from before the
       override, as the C++ stores it.
     - hook B: scale every sub-8 and merge candidate cost by 0.8 times the
-      homogeneity factor of the candidate's top-left block."""
+      homogeneity factor of the candidate's top-left block.
+
+    The hooks' similarity statistics, hook-B factor and partition are the
+    stage span `encode.homogeneity` (`utils/trace.py`)."""
     if bit_lut is None:
         rate = _rate_bits
     else:
@@ -231,9 +235,12 @@ def search_acs(
     dev = blocks.device
     nby, nbx = blocks.shape[1], blocks.shape[2]
     sub8_steps = sub8_step_grids(distance, device=dev)
+    bfac = None
     if hook_a or hook_b:
-        r_h, r_v, r_d = homogeneity_similarity_indices(planes, distance)
-    bfac = hook_b_factor(r_h, r_v, r_d) if hook_b else None
+        with trace.span("encode.homogeneity"):
+            r_h, r_v, r_d = homogeneity_similarity_indices(planes, distance)
+            if hook_b:
+                bfac = hook_b_factor(r_h, r_v, r_d)
 
     sub8 = candidates_sub8(blocks)
     costs = []
@@ -251,7 +258,8 @@ def search_acs(
         best8 = torch.zeros((nby, nbx), dtype=torch.int64, device=dev)
     cost_sel = torch.gather(stacked, 0, best8[None])[0]
     if hook_a:
-        part = homogeneity_partition(r_h, r_v, r_d, distance)
+        with trace.span("encode.homogeneity"):
+            part = homogeneity_partition(r_h, r_v, r_d, distance)
         override = best8 == ACS_DCT
         if hook_a == 2:
             cost_part = torch.gather(stacked, 0, part[None])[0]

@@ -1,0 +1,9 @@
+"""Milliseconds per round trip of the program's `encode.acs` self time in the window:
+every stripe's AC-strategy search (`search_acs`); the span less its child spans
+(`perfbench/program_spans.py`). None where the program records no such span."""
+
+from perfbench import program_spans
+
+
+def read(trace):
+    return program_spans.self_ms_per_unit(trace, "encode.acs")

@@ -2,8 +2,10 @@
 
 On the CPU: nothing is recorded with tracing off; under a Recorder an
 encode, a grid encode and a grid decode record their stages with the
-stated nesting and request ids; the codec's bytes and pixels do not depend
-on tracing; a torch.profiler session turns tracing on and off; the buffer
+stated nesting and request ids; the homogeneity hooks' span lies in the
+ACS search, under the hook strategies only; a striped encode is one
+request, and its decode stitches once per VarDCT run; the codec's bytes and
+pixels do not depend on tracing; a torch.profiler session turns tracing on and off; the buffer
 counts what it drops; `bench --profile` puts the spans into its Chrome
 trace on the profiler's time base. On the card (marked `cuda`): the kernels
 of an encode and a grid decode lie where the spans say, which holds the
@@ -23,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from jxl_tpu_torch.codec.config import CodecConfig
+from jxl_tpu_torch.codec import tiled
+from jxl_tpu_torch.codec.config import CodecConfig, Strategy
+from jxl_tpu_torch.codec.container import read_container_header
 from jxl_tpu_torch.codec.decode import decode_bytes_device, decode_bytes_grid_stacked
 from jxl_tpu_torch.codec.encode import encode_image, encode_image_async, encode_image_grid
 from jxl_tpu_torch.utils import trace
@@ -32,6 +36,10 @@ ENCODE_CHILDREN = {"encode.front_end", "encode.entropy", "encode.screen"}
 FRONT_END_CHILDREN = {"encode.acs", "encode.decide", "encode.epf"}
 DECODE_CHILDREN = {"decode.read", "decode.scan", "decode.reconstruct"}
 DISTANCES = [0.5, 1.0, 3.0]
+# `encode.homogeneity` spans of one `search_acs` call: the similarity
+# statistics (with hook B's factor) under either hook, and hook A's partition
+HOMOGENEITY_SPANS = {"BASELINE": 0, "HOMOGENEITY_PARTITIONING": 2, "HOMOGENEITY_FACTORED_ENTROPY": 1,
+                     "COMBINED": 2, "HOMOGENEITY_RD_GATED": 2}
 
 
 def _image(h: int = 64, w: int = 96, seed: int = 5) -> np.ndarray:
@@ -351,3 +359,69 @@ def test_containers_equal_with_tracing_on_and_off(where):
     with profile(activities=acts):
         on = run()
     assert trace.drain() and on[0] == off[0] and torch.equal(on[1], off[1])
+
+
+@pytest.mark.parametrize("strategy", list(HOMOGENEITY_SPANS))
+def test_homogeneity_spans_only_under_the_hooks(strategy):
+    """`encode.homogeneity` is a child of `encode.acs` under every strategy
+    that runs a homogeneity hook, and never opens under BASELINE; the bytes
+    are the same with tracing on and off."""
+    img = _image(seed=3)
+    cfg = CodecConfig(effort=7, strategy=Strategy[strategy])
+    off = encode_image(img, cfg, device="cpu")
+    with trace.Recorder() as rec:
+        on = encode_image(img, cfg, device="cpu")
+    assert on == off
+    ids = _by_id(rec.spans)
+    found = [s for s in rec.spans if s.name == "encode.homogeneity"]
+    assert len(found) == HOMOGENEITY_SPANS[strategy]
+    assert all(ids[s.parent_id].name == "encode.acs" for s in found)
+    _check_nesting(rec.spans)
+
+
+def test_a_striped_encode_is_one_request_and_its_decode_stitches_once():
+    """Every stripe's stages and finalize lie in one `encode` span, one
+    request; the decode reconstructs each section and stitches the one
+    VarDCT run once; bytes and pixels do not depend on tracing."""
+    img = _image(64, 96, seed=4)
+    cfg = CodecConfig(effort=7)
+    off = tiled.encode_image_striped(img, cfg, n_stripes=3, device="cpu")
+    px_off = decode_bytes_device(off, device="cpu")
+    with trace.Recorder() as rec:
+        data = tiled.encode_image_striped(img, cfg, n_stripes=3, device="cpu")
+        px = decode_bytes_device(data, device="cpu")
+    assert data == off and torch.equal(px, px_off)
+    ids = _by_id(rec.spans)
+    enc = [s for s in rec.spans if s.name.startswith("encode")]
+    assert [s.name for s in enc if s.parent_id is None] == ["encode"]
+    assert len({s.request_id for s in enc}) == 1
+    assert Counter(s.name for s in enc) == {
+        "encode": 1, "encode.screen": 1, "encode.front_end": 3, "encode.acs": 3, "encode.decide": 15,
+        "encode.epf": 3, "encode.entropy": 3, "encode.finalize": 3,
+    }
+    for s in enc:
+        if s.name in ENCODE_CHILDREN | {"encode.finalize"}:
+            assert ids[s.parent_id].name == "encode"
+    dec = [s for s in rec.spans if s.name.startswith("decode")]
+    assert Counter(s.name for s in dec) == {
+        "decode": 1, "decode.read": 3, "decode.scan": 3, "decode.reconstruct": 3, "decode.stitch": 1,
+    }
+    assert all(ids[s.parent_id].name == "decode" for s in dec if s.parent_id is not None)
+
+
+def test_a_stitch_per_vardct_run():
+    """A modular section between two VarDCT sections splits them into two
+    runs: two `decode.stitch` spans."""
+    ui = np.full((32, 32, 3), 240, np.uint8)
+    ui[8:14, 4:28] = [40, 40, 90]
+    photo = _image(32, 64, seed=6)
+    secs = [encode_image(x, CodecConfig(distance=1.0, effort=5), device="cpu") for x in (photo[:, :32], ui,
+                                                                                          photo[:, 32:])]
+    families = [read_container_header(s).lossless for s in secs]
+    assert families == [False, True, False]
+    data = tiled.write_striped(32, 96, secs)
+    with trace.Recorder() as rec:
+        decode_bytes_device(data, device="cpu")
+    names = Counter(s.name for s in rec.spans)
+    assert names["decode.stitch"] == 2 and names["decode"] == 1
+
