@@ -43,9 +43,17 @@ and no result line is printed:
            beside its bound (the frame read once at 3.35 TB/s), the plain
            version's host time, and the plain version on the card (wall,
            busy time, kernels, bytes allocated) against screen_count's;
+3e. the DCT kernel D1 (csrc/dct.cu) at the 12 MP views of the encoder's
+           8x8, 4x4 and 64x64 calls, forward and inverse: the same bits
+           from two launches, within 1e-5 of max|Y| of the cuBLAS path,
+           timed with CUDA events (mean of 20 launches) beside its bound
+           (one read and one write at 3.35 TB/s, or its FLOPs at 67
+           TFLOP/s) and torch.matmul on the same view;
 4. main path, single image: encode_image + decode_bytes at d=1 e7 on the
            card; the kernels must have run (launch counts, the screen
-           exactly once, as in each 4b row), PSNR / bpp must
+           exactly once, as in each 4b row; from here on every phase's D1
+           launches must equal what the codec's dct2d / idct2d calls on
+           the card take, one a call, two above 64), PSNR / bpp must
            match the quality anchor, and the card's pixels must be within
            1 LSB of the plain path on the CPU;
 4b. main path, the sweep row: encode_image_grid + decode_bytes_grid_stacked
@@ -430,7 +438,7 @@ def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
     ]
     reset_counts()
     wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "sweep.log"))
-    ne, n1, n2, ns = read_counts()
+    ne, n1, n2, ns, nd = read_counts()
     n_pts = len(images) * len(RUST_DISTANCES)
     if ne < 2 * n_pts or n1 < 1 or n2 < 2:
         raise AssertionError(f"sweep launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= {2 * n_pts}, >= 1, >= 2)")
@@ -517,7 +525,7 @@ def phase_sweep(torch, dev, kind: str, smi: str, reset_counts, read_counts):
         f"(CUDA events, 10 runs, peak {peak_gb:.2f} GB), plain path on the CPU {bat_cpu_ms:.0f} ms (one call); "
         "row within the bars card vs CPU"
     )
-    return ne, n1, n2, ns
+    return ne, n1, n2, ns, nd
 
 
 def phase_legacy(torch, dev, reset_counts, read_counts):
@@ -540,7 +548,7 @@ def phase_legacy(torch, dev, reset_counts, read_counts):
     ]
     reset_counts()
     wall_s = run_bench_cli(argv, os.path.join(SWEEP_DIR, "legacy.log"))
-    ne, n1, n2, ns = read_counts()
+    ne, n1, n2, ns, nd = read_counts()
     base = os.path.join(bench_dir, "0", "synth02", "BASELINE")
     comps = read_csv(os.path.join(base, "results", "comparisons.csv"))[1:]
     dec = read_csv(os.path.join(base, "results", "decompressed.csv"))
@@ -566,7 +574,7 @@ def phase_legacy(torch, dev, reset_counts, read_counts):
             f"e{e}: " + ", ".join(f"d={float(r[2]):g} {r[5]} B {float(r[11]):.2f} dB" for r in rows) for e, rows in by_e.items()
         )
     )
-    return ne, n1, n2, ns
+    return ne, n1, n2, ns, nd
 
 
 def section_headers(data: bytes) -> list:
@@ -697,7 +705,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     dec_peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    ne, n1, n2, ns = read_counts()
+    ne, n1, n2, ns, nd = read_counts()
 
     hdrs = section_headers(data)
     if not is_striped(data) or len(data) != size or len(hdrs) != n:
@@ -751,7 +759,7 @@ def phase_striped_full(torch, dev, kind, smi, chains, reset_counts, read_counts,
         f"{r['dec_plain_ms']:.0f} ms)"
     )
     torch.cuda.empty_cache()
-    return (ne, n1, n2, ns), r
+    return (ne, n1, n2, ns, nd), r
 
 
 def phase_mesh(torch, dev, img, reset_counts, read_counts):
@@ -927,8 +935,8 @@ def phase_standalone(torch, dev, kind, smi, reset_counts, read_counts):
     (pw_c, _bits), pack_card = timed(lambda: tt.pack_bits(nbits_c, mant_c, cap), True)
     unpacked, unpack_card = timed(lambda: tt.unpack_bits(nbits_c, pw_c), True)
     counts_run = read_counts()
-    if counts_run != (0, 0, 0, 0):
-        raise AssertionError(f"the standalone coder launched kernels: B3, B1, B2, screen = {counts_run}")
+    if counts_run != (0, 0, 0, 0, 0):
+        raise AssertionError(f"the standalone coder launched kernels: B3, B1, B2, screen, D1 = {counts_run}")
 
     (w_h, nw_h, st_h), enc_cpu = timed(lambda: tr.rans_encode(tok, ctx, freq, cum, lanes, device="cpu"), False)
     back_h, dec_cpu = timed(lambda: tr.rans_decode(w_h, st_h, ctx, freq, cum, n, lanes, device="cpu"), False)
@@ -1034,7 +1042,7 @@ def phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts):
             raise AssertionError(f"trace {name} out of range: {t}")
     print(f"[11 trace] {kind} ({smi}): " + "; ".join(f"{k}: {json.dumps(v)}" for k, v in rows.items()))
     counts = read_counts()
-    print(f"[11 headline] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]}; the phase took "
+    print(f"[11 headline] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]}, D1 {counts[4]}; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -1119,7 +1127,7 @@ def phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts):
             raise AssertionError("profile_startup's container differs from encode_image's")
     if marks["device"] != smi or not all(v > 0 for v in marks["phase_s"].values()):
         raise AssertionError(f"profile_startup marks {marks}")
-    print(f"[12 tools] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]} (this process); "
+    print(f"[12 tools] launches B3 {counts[0]}, B1 {counts[1]}, B2 {counts[2]}, screen {counts[3]}, D1 {counts[4]} (this process); "
           f"the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -1190,6 +1198,69 @@ def phase_screen(torch, dev, smi) -> dict:
     return photo
 
 
+def dct_views_12mp(torch, dev) -> dict:
+    """The views the encoder's 8x8, 4x4 and 64x64 DCT calls (`search_acs`)
+    pass at 12 MP (4032x3024), on the card: the 8x8 blocks of the planes,
+    their 4x4 quadrants, and the 64x64 tiles of the planes' aligned part."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    planes = torch.randn(3, 3024, 4032, generator=g, device=dev) * 64
+    blocks = planes.reshape(3, 378, 8, 504, 8).permute(0, 1, 3, 2, 4)
+    lead = blocks.shape[:-2]
+    return {
+        "8x8": blocks,
+        "4x4": blocks.reshape(*lead, 2, 4, 2, 4).permute(0, 1, 2, 3, 5, 4, 6),
+        "64x64": planes[:, :3008].reshape(3, 47, 64, 63, 64).permute(0, 1, 3, 2, 4),
+    }
+
+
+def phase_dct(torch, dev, smi) -> dict:
+    """Phase 3e: the DCT kernel D1 at the 12 MP views of the encoder's
+    8x8, 4x4 and 64x64 calls, forward and inverse: one launch a call, the
+    same bits from two launches, its distance from the cuBLAS path's result,
+    its CUDA-event mean of 20 launches beside its bound (one read and one
+    write of the samples at PEAK_BW, or 2 (n + m) FLOPs a sample at
+    PEAK_FLOPS, the larger) and beside torch.matmul on the same view (the
+    bases already on the card). Returns the 8x8 forward timing."""
+    from jxl_tpu_torch.bench.headline import PEAK_BW, PEAK_FLOPS
+    from jxl_tpu_torch.transforms.dct import dct2d, dct2d_cuda, dct_matrix, idct2d
+
+    first = None
+    for name, x in dct_views_12mp(torch, dev).items():
+        n, m = x.shape[-2:]
+        dn, dm = dct_matrix(n, dev), dct_matrix(m, dev)
+        for inverse, fn in ((False, dct2d), (True, idct2d)):
+            gemm = (lambda: torch.matmul(torch.matmul(dn.T, x), dm)) if inverse else (
+                lambda: torch.matmul(torch.matmul(dn, x), dm.T))
+            n0 = dct2d_cuda.launches
+            a, b = fn(x), fn(x)
+            torch.cuda.synchronize()
+            want = 2 * (2 if max(n, m) > 64 else 1)
+            if dct2d_cuda.launches - n0 != want:
+                raise AssertionError(f"D1 {name}: {dct2d_cuda.launches - n0} launches for 2 calls, expected {want}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"D1 {name}: two launches differ")
+            ref = gemm()
+            rel = float((a - ref).abs().max() / ref.abs().max())
+            if rel > 1e-5:
+                raise AssertionError(f"D1 {name}: {rel:.3g} of max|Y| from the cuBLAS path")
+            ms = cuda_ms(torch, lambda: fn(x), 20)
+            lib_ms = cuda_ms(torch, gemm, 20)
+            nbytes = 2 * 4 * x.numel()
+            bytes_ms, flops_ms = 1e3 * nbytes / PEAK_BW, 1e3 * 2 * (n + m) * x.numel() / PEAK_FLOPS
+            bound_ms = max(bytes_ms, flops_ms)
+            kind = "idct" if inverse else "dct"
+            print(
+                f"[3e D1] {kind} {name} {tuple(x.shape)} (strides {x.stride()}): same bits twice, "
+                f"{rel:.2e} of max|Y| from cuBLAS; kernel {1e3 * ms:.1f} us (mean of 20 launches), bound "
+                f"{1e3 * bound_ms:.1f} us ({'bytes' if bytes_ms >= flops_ms else 'FLOPs'}: {nbytes / 1e6:.1f} MB "
+                f"-> {1e3 * bytes_ms:.1f} us, {2 * (n + m) * x.numel() / 1e9:.2f} GFLOP -> {1e3 * flops_ms:.1f} us; "
+                f"{100 * bound_ms / ms:.1f}%); torch.matmul on the view {1e3 * lib_ms:.1f} us ({smi})"
+            )
+            if first is None:
+                first = dict(ms=ms, bound_ms=bound_ms, library_ms=lib_ms, max_rel_err=rel)
+    return first
+
+
 def main() -> int:
     import torch
 
@@ -1230,6 +1301,7 @@ def main() -> int:
     )
     from jxl_tpu_torch.codec.layout import lossless_layout, padded_layout, token_layout
     from jxl_tpu_torch.codec.lossless import ll_step_ctx, lossless_tokens, modular_steps
+    from jxl_tpu_torch.codec import decode as decode_mod
     from jxl_tpu_torch.codec.screen import screen_count
     from jxl_tpu_torch.core.device import resolve_device
     from jxl_tpu_torch.core.io import read_png_rgb8
@@ -1238,26 +1310,52 @@ def main() -> int:
     from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda
     from jxl_tpu_torch.entropy.grouped import decode_grouped_batched
     from jxl_tpu_torch.entropy import kernel_bounds
+    from jxl_tpu_torch.strategy import acs as acs_mod
+    from jxl_tpu_torch.transforms.dct import dct2d_cuda
+
+    # every dct2d / idct2d call of the codec (the names strategy.acs and codec.decode call), counted
+    # apart from the kernel's own counter: a CUDA call must take D1, once (twice for a side above 64)
+    dct_calls = Counter()
+
+    def counted(fn):
+        def call(x):
+            if x.is_cuda and x.numel():
+                dct_calls["calls"] += 1
+                dct_calls["launches"] += 2 if max(x.shape[-2:]) > 64 else 1
+            return fn(x)
+
+        return call
+
+    for mod, name in ((acs_mod, "dct2d"), (acs_mod, "idct2d"), (decode_mod, "idct2d")):
+        setattr(mod, name, counted(getattr(mod, name)))
 
     def reset_counts():
         encode_grouped_cuda.launches = 0
         decode_grouped_cuda.launches = 0
         decode_grouped_batched_cuda.launches = 0
         screen_count.launches = 0
+        dct2d_cuda.launches = 0
+        dct_calls.clear()
 
     def read_counts():
-        """(B3, B1, B2, screen) launches since reset_counts(), after the card is done."""
+        """(B3, B1, B2, screen, D1) launches since reset_counts(), after the card is done;
+        raises unless D1's launches are those the codec's DCT calls since then should take."""
         torch.cuda.synchronize()
+        if dct2d_cuda.launches != dct_calls["launches"]:
+            raise AssertionError(
+                f"D1 launched {dct2d_cuda.launches} times for {dct_calls['calls']} DCT calls on the card "
+                f"(want {dct_calls['launches']})"
+            )
         return (
             encode_grouped_cuda.launches, decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches,
-            screen_count.launches,
+            screen_count.launches, dct2d_cuda.launches,
         )
 
     resolve_device(dev)
 
     # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    sources = ("rans_dec", "rans_enc", "screen", "chain_probe")
+    sources = ("rans_dec", "rans_enc", "screen", "dct", "chain_probe")
     with ThreadPoolExecutor(max_workers=len(sources)) as ex:
         list(ex.map(build, sources))
     build_s = time.perf_counter() - t0
@@ -1413,23 +1511,27 @@ def main() -> int:
             f"B1 {r['dec']['ms']:.3f} ms (plain {r['dec_plain_ms']:.1f} ms)"
         )
 
-    # ---- 3d. the pre-screen kernel
+    # ---- 3d. the pre-screen kernel; 3e. the DCT kernel at 12 MP
     screen_t = phase_screen(torch, dev, smi)
+    dct_t = phase_dct(torch, dev, smi)
 
-    # ---- 4. main path, single image (the counts of phase 3d's timing loops are dropped here)
+    # ---- 4. main path, single image (the counts of phase 3d's and 3e's timing loops are dropped here)
     reset_counts()
     data = encode_image(img, cfg, device=dev)
     out = decode_bytes(data, device=dev)
-    n_enc, n_dec, _n2, n_scr = read_counts()
-    if n_enc < 1 or n_dec < 2 or n_scr != 1:
-        raise AssertionError(f"main path launches: encode {n_enc}, decode {n_dec}, screen {n_scr} (want >= 1, >= 2, 1)")
+    n_enc, n_dec, _n2, n_scr, n_dct = read_counts()
+    if n_enc < 1 or n_dec < 2 or n_scr != 1 or n_dct < 1:
+        raise AssertionError(
+            f"main path launches: encode {n_enc}, decode {n_dec}, screen {n_scr}, D1 {n_dct} (want >= 1, >= 2, 1, >= 1)"
+        )
     if out.shape != img.shape or out.dtype != np.uint8:
         raise AssertionError(f"decoded {out.shape} {out.dtype}, expected {img.shape} uint8")
     q_db = psnr(img, out)
     bpp = len(data) * 8 / (h * w)
     print(
         f"[4 main path] {len(data)} bytes, {bpp:.4f} bpp, PSNR {q_db:.4f} dB "
-        f"(anchor {ANCHOR_PSNR_DB} dB at {ANCHOR_BPP} bpp); launches encode {n_enc}, decode {n_dec}, screen {n_scr}"
+        f"(anchor {ANCHOR_PSNR_DB} dB at {ANCHOR_BPP} bpp); launches encode {n_enc}, decode {n_dec}, screen {n_scr}, "
+        f"D1 {n_dct} (one a DCT call)"
     )
     if abs(q_db - ANCHOR_PSNR_DB) > PSNR_TOL_DB:
         raise AssertionError(f"PSNR {q_db:.4f} dB not within {PSNR_TOL_DB} dB of {ANCHOR_PSNR_DB}")
@@ -1451,7 +1553,7 @@ def main() -> int:
         reset_counts()
         datas = encode_image_grid(img, cfg_s, RUST_DISTANCES, device=dev)
         out = decode_bytes_grid_stacked(datas, device=dev)
-        ne, n1, n2, ns = read_counts()
+        ne, n1, n2, ns, nd = read_counts()
         if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0 or ns != 1:
             raise AssertionError(
                 f"{strat.name} row launches: encode {ne}, B2 {n2}, B1 {n1}, screen {ns} (want >= 10, 2, 0, 1)"
@@ -1459,6 +1561,7 @@ def main() -> int:
         n_enc += ne
         n_b2 += n2
         n_scr += ns
+        n_dct += nd
         if out is None or tuple(out.shape) != (len(RUST_DISTANCES), h, w, 3):
             raise AssertionError(f"{strat.name} row decoded to {None if out is None else tuple(out.shape)}")
         streams = [read_container(b) for b in datas]
@@ -1493,10 +1596,10 @@ def main() -> int:
         reset_counts()
         data_e = encode_image(img, CodecConfig(distance=1.0, effort=effort), device=dev)
         out_e = decode_bytes(data_e, device=dev)
-        ne, n1, n2, ns = read_counts()
+        ne, n1, n2, ns, nd = read_counts()
         if ne < 1 or n1 < 2 or n2 != 0:
             raise AssertionError(f"e{effort} launches: B3 {ne}, B1 {n1}, B2 {n2} (want >= 1, >= 2, 0)")
-        n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
+        n_enc, n_dec, n_scr, n_dct = n_enc + ne, n_dec + n1, n_scr + ns, n_dct + nd
         lsb_e = int(np.abs(out_e.astype(np.int32) - decode_bytes(data_e, device="cpu")).max())
         if lsb_e > 1:
             raise AssertionError(f"e{effort}: card vs CPU pixels differ by {lsb_e} LSB (> 1)")
@@ -1515,10 +1618,10 @@ def main() -> int:
         reset_counts()
         d0 = encode_image(im, CodecConfig(distance=0.0), device=dev)
         out0 = decode_bytes(d0, device=dev)
-        ne, n1, n2, ns = read_counts()
+        ne, n1, n2, ns, nd = read_counts()
         if ne < 1 or n1 < 2:
             raise AssertionError(f"{name} d=0 launches: B3 {ne}, B1 {n1} (want >= 1, >= 2)")
-        n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
+        n_enc, n_dec, n_scr, n_dct = n_enc + ne, n_dec + n1, n_scr + ns, n_dct + nd
         if not np.array_equal(out0, im):
             raise AssertionError(f"{name} d=0 does not round-trip exactly")
         s0 = read_container(d0)
@@ -1531,8 +1634,8 @@ def main() -> int:
 
     reset_counts()
     picks = encode_image_grid(synth, CodecConfig(effort=7), RUST_DISTANCES, device=dev)
-    ne, n1, n2, ns = read_counts()
-    n_enc, n_dec, n_scr = n_enc + ne, n_dec + n1, n_scr + ns
+    ne, n1, n2, ns, nd = read_counts()
+    n_enc, n_dec, n_scr, n_dct = n_enc + ne, n_dec + n1, n_scr + ns, n_dct + nd
     if ne < 2 * len(RUST_DISTANCES) or n1 < 4 * len(RUST_DISTANCES):
         raise AssertionError(f"synth02 grid pick launches: B3 {ne}, B1 {n1} (want >= 20, >= 40)")
     print(
@@ -1548,10 +1651,10 @@ def main() -> int:
     reset_counts()
     mrow = _modular_grid_async(synth_t, CodecConfig(), RUST_DISTANCES, "", knobs)()
     mout = decode_bytes_grid_stacked(mrow, device=dev)
-    ne, n1, n2, ns = read_counts()
+    ne, n1, n2, ns, nd = read_counts()
     if ne < len(RUST_DISTANCES) or n2 != 2 or n1 != 0:
         raise AssertionError(f"modular row launches: B3 {ne}, B2 {n2}, B1 {n1} (want >= 10, 2, 0)")
-    n_enc, n_b2, n_scr = n_enc + ne, n_b2 + n2, n_scr + ns
+    n_enc, n_b2, n_scr, n_dct = n_enc + ne, n_b2 + n2, n_scr + ns, n_dct + nd
     mstreams = [read_container(b) for b in mrow]
     mvals = decode_values_grid(mstreams, dev)
     errs = []
@@ -1628,8 +1731,8 @@ def main() -> int:
         lambda: phase_sweep(torch, dev, kind, smi, reset_counts, read_counts),
         lambda: phase_legacy(torch, dev, reset_counts, read_counts),
     ):
-        ne, n1, n2, ns = phase()
-        n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
+        ne, n1, n2, ns, nd = phase()
+        n_enc, n_dec, n_b2, n_scr, n_dct = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns, n_dct + nd
 
     # ---- 7 / 7b. striped JXTS; 8. mesh; 9. serve
     big = {}
@@ -1643,20 +1746,20 @@ def main() -> int:
         striped_full,
         lambda: phase_mesh(torch, dev, img, reset_counts, read_counts),
     ):
-        ne, n1, n2, ns = phase()
-        n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
+        ne, n1, n2, ns, nd = phase()
+        n_enc, n_dec, n_b2, n_scr, n_dct = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns, n_dct + nd
     phase_serve(torch, dev, kind, smi, img)
 
     # ---- 10. the standalone coder and the bit packer (no kernel on this path)
     phase_standalone(torch, dev, kind, smi, reset_counts, read_counts)
 
     # ---- 11. the headline benchmark (bench_torch.py's body), host syncs, traces
-    ne, n1, n2, ns = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
-    n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
+    ne, n1, n2, ns, nd = phase_headline(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2, n_scr, n_dct = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns, n_dct + nd
 
     # ---- 12. the measurement tools (jxl_tpu_torch/tools/)
-    ne, n1, n2, ns = phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts)
-    n_enc, n_dec, n_b2, n_scr = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns
+    ne, n1, n2, ns, nd = phase_tools(torch, dev, kind, smi, img, reset_counts, read_counts)
+    n_enc, n_dec, n_b2, n_scr, n_dct = n_enc + ne, n_dec + n1, n_b2 + n2, n_scr + ns, n_dct + nd
 
     def timing(t: dict) -> dict:
         """The JSON keys of a kernel_time() measurement (the bound is the roofline's: bytes)."""
@@ -1691,6 +1794,11 @@ def main() -> int:
             "name": "screen", "route": "cuda", "source": "jxl_tpu_torch/csrc/screen.cu", "replaces": None,
             "launches": n_scr, "max_abs_err": 0, "plain_ms": screen_t["plain_ms"],
             "ms": screen_t["ms"], "bound_ms": screen_t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "dct2d", "route": "cuda", "source": "jxl_tpu_torch/csrc/dct.cu", "replaces": None,
+            "launches": n_dct, "max_rel_err": dct_t["max_rel_err"], "plain_ms": None, "ms": dct_t["ms"],
+            "bound_ms": dct_t["bound_ms"], "bound_by": "bytes", "library_ms": dct_t["library_ms"],
         },
     ]
     print(smi)

@@ -627,3 +627,184 @@ def test_encode_launches_the_screen_once(dev):
         assert _modular_candidate(img, 1) is want
         assert _modular_candidate(torch.from_numpy(img).to(dev), 1) is want
     assert screen_count.launches == n0 + 3
+
+
+# ---- D1: the 2-D DCT / IDCT kernel (csrc/dct.cu) against float64 and cuBLAS
+
+DCT_SHAPES = [(2, 2), (4, 4), (8, 4), (4, 8), (8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256)]
+
+
+def _dct_view_names(n: int, m: int) -> list:
+    """The views of [..., n, m] blocks that the codec's call sites build."""
+    names = ["contiguous", "transposed"]
+    names += {(4, 4): ["sub8_quadrants"], (2, 2): ["sub8_subdc"], (8, 4): ["sub8_halves"], (4, 8): ["sub8_halves"]}.get(
+        (n, m), []
+    )
+    names += ["merged_tiles"] if n == m >= 8 else []
+    names += ["overlay_dc"] if n == m <= 32 else []
+    return names
+
+
+def _dct_views(n: int, m: int, dev) -> dict:
+    """name -> a float32 view [..., n, m] on `dev`, as the call sites build
+    them: contiguous; the transposed storage of one; and the permuted views
+    of `candidates_sub8` / `_reconstruct_sub8` (4x4 quadrants, 2x2 sub-DC,
+    8x4 halves, 4x8 halves), `candidates_merged` (n x n tiles of wider
+    planes) and `_overlay_merged` (k x k groups of the DC plane)."""
+    g = torch.Generator().manual_seed(n * 1000 + m)
+    count = max(2, 40_000 // (n * m))  # ~40k samples (2 blocks at 256)
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=g) * 64).to(dev)
+
+    views = {"contiguous": randn(count, n, m), "transposed": randn(count, m, n).transpose(-1, -2)}
+    blocks = randn(3, 7, 9, 8, 8)
+    lead = blocks.shape[:-2]
+    if (n, m) == (4, 4):
+        views["sub8_quadrants"] = blocks.reshape(*lead, 2, 4, 2, 4).permute(0, 1, 2, 3, 5, 4, 6)
+    if (n, m) == (2, 2):
+        views["sub8_subdc"] = randn(3, 7, 9, 2, 2, 4, 4)[..., 0, 0]
+    if (n, m) == (8, 4):
+        views["sub8_halves"] = blocks.reshape(*lead, 8, 2, 4).permute(0, 1, 2, 4, 3, 5)
+    if (n, m) == (4, 8):
+        views["sub8_halves"] = blocks.reshape(*lead, 2, 4, 8)
+    if n == m >= 8:
+        gy, gx = max(1, 96 // n), max(1, 160 // n)
+        region = randn(3, gy * n + 5, gx * n + 3)[:, : gy * n, : gx * n]
+        views["merged_tiles"] = region.reshape(3, gy, n, gx, n).permute(0, 1, 3, 2, 4)
+    if n == m <= 32:
+        gy, gx = 5, 6
+        dc = randn(3, gy * n + 1, gx * n + 2)[:, : gy * n, : gx * n]
+        views["overlay_dc"] = dc.reshape(3, gy, n, gx, n).permute(0, 1, 3, 2, 4)
+    assert sorted(views) == sorted(_dct_view_names(n, m))
+    return views
+
+
+def _dct_cases():
+    return [(n, m, name) for n, m in DCT_SHAPES for name in _dct_view_names(n, m)]
+
+
+def _dct_f64(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    from jxl_tpu_torch.transforms.dct import _dct_matrix_np
+
+    n, m = x.shape[-2:]
+    dn = torch.from_numpy(_dct_matrix_np(n)).double()
+    dm = torch.from_numpy(_dct_matrix_np(m)).double()
+    xd = x.double().cpu()
+    return dn.T @ xd @ dm if inverse else dn @ xd @ dm.T
+
+
+def _dct_gemm(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The cuBLAS path the kernel replaced, on the same view."""
+    from jxl_tpu_torch.transforms.dct import _dct_matrix_np
+
+    n, m = x.shape[-2:]
+    dn = torch.from_numpy(_dct_matrix_np(n)).to(x.device)
+    dm = torch.from_numpy(_dct_matrix_np(m)).to(x.device)
+    return torch.matmul(torch.matmul(dn.T, x), dm) if inverse else torch.matmul(torch.matmul(dn, x), dm.T)
+
+
+def _f32_bound(n: int, m: int, x: torch.Tensor) -> float:
+    """A float32 bound on the error of D_n X D_m^T: two passes of length-n
+    and length-m sums, each term at most sqrt(n m) max|x| (orthonormal rows),
+    u = 2^-24 a rounding, twice over."""
+    return 2.0 * (n + m) * (n * m) ** 0.5 * 2.0**-24 * float(x.abs().max())
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dct", "idct"])
+@pytest.mark.parametrize("n,m,view", _dct_cases(), ids=lambda v: str(v))
+def test_dct_kernel_against_float64(dev, n, m, view, inverse):
+    """D1 on each view the codec passes: within the stated float32 bound of
+    float64 D X D^T, no further from it than twice the cuBLAS path, the
+    same bits from two launches, one launch a call (two above 64), and a
+    contiguous [..., n, m] result."""
+    from jxl_tpu_torch.transforms.dct import dct2d_cuda, idct2d, dct2d
+
+    x = _dct_views(n, m, dev)[view]
+    fn = idct2d if inverse else dct2d
+    n0 = dct2d_cuda.launches
+    a = fn(x)
+    b = fn(x)
+    torch.cuda.synchronize()
+    assert dct2d_cuda.launches - n0 == 2 * (2 if max(n, m) > 64 else 1)
+    assert a.is_contiguous() and a.shape == x.shape and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    want = _dct_f64(x, inverse)
+    err = float((a.cpu().double() - want).abs().max())
+    err_gemm = float((_dct_gemm(x, inverse).cpu().double() - want).abs().max())
+    assert err <= _f32_bound(n, m, x), (err, _f32_bound(n, m, x))
+    assert err <= 2.0 * err_gemm, (err, err_gemm)
+
+
+@pytest.mark.parametrize("n,m", DCT_SHAPES, ids=lambda v: str(v))
+def test_dct_kernel_round_trip(dev, n, m):
+    """idct2d(dct2d(x)) returns x within float32 rounding, on the card."""
+    from jxl_tpu_torch.transforms.dct import dct2d, idct2d
+
+    x = _dct_views(n, m, dev)["contiguous"]
+    back = idct2d(dct2d(x))
+    err = float((back - x).abs().max())
+    assert err <= 2.0 * _f32_bound(n, m, x), (err, _f32_bound(n, m, x))
+
+
+def test_dct_kernel_refuses_what_it_does_not_take(dev):
+    """float64 and a ninth dim raise before any launch; an empty view
+    launches nothing."""
+    from jxl_tpu_torch.transforms.dct import dct2d, dct2d_cuda
+
+    n0 = dct2d_cuda.launches
+    with pytest.raises(ValueError, match="float32"):
+        dct2d(torch.zeros(4, 8, 8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="dims"):
+        dct2d(torch.zeros((1,) * 7 + (8, 8), device=dev))
+    assert dct2d(torch.zeros(0, 8, 8, device=dev)).shape == (0, 8, 8)
+    assert dct2d_cuda.launches == n0
+
+
+def test_codec_dct_calls_take_the_kernel(dev, monkeypatch):
+    """An e7 encode and decode of the card image run every dct2d / idct2d
+    call through D1: one launch a call, two for a side above 64."""
+    from jxl_tpu_torch.codec import decode as dec_mod
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.decode import decode_bytes
+    from jxl_tpu_torch.codec.encode import encode_image
+    from jxl_tpu_torch.strategy import acs as acs_mod
+    from jxl_tpu_torch.transforms.dct import dct2d_cuda
+
+    calls = []
+
+    def counted(fn):
+        def wrapper(x):
+            calls.append((x.is_cuda, x.numel(), max(x.shape[-2:])))
+            return fn(x)
+
+        return wrapper
+
+    for mod, name in ((acs_mod, "dct2d"), (acs_mod, "idct2d"), (dec_mod, "idct2d")):
+        monkeypatch.setattr(mod, name, counted(getattr(mod, name)))
+    n0 = dct2d_cuda.launches
+    data = encode_image(_card_image(), CodecConfig(distance=1.0, effort=7), device=dev)
+    decode_bytes(data, device=dev)
+    torch.cuda.synchronize()
+    assert calls and all(cuda for cuda, _, _ in calls)
+    want = sum((2 if side > 64 else 1) for _, numel, side in calls if numel)
+    assert dct2d_cuda.launches - n0 == want
+
+
+@pytest.mark.parametrize("n,m", [(3, 5), (1, 64), (64, 1), (64, 63), (12, 20), (7, 384)], ids=str)
+def test_dct_kernel_takes_any_side(dev, n, m):
+    """Sides the codec does not pass (odd, 1, not a power of two, one above
+    64) run through D1 too, within the float32 bound of float64. (Not held
+    to twice the cuBLAS path's error: at 64 x 1 cuBLAS sums the 64 terms in
+    blocks, D1 in order, and reads about half D1's error.)"""
+    from jxl_tpu_torch.transforms.dct import dct2d, dct2d_cuda
+
+    g = torch.Generator().manual_seed(n * 7 + m)
+    x = (torch.randn(max(2, 20_000 // (n * m)), n, m, generator=g) * 64).to(dev)
+    n0 = dct2d_cuda.launches
+    a = dct2d(x)
+    torch.cuda.synchronize()
+    assert dct2d_cuda.launches - n0 == (2 if max(n, m) > 64 else 1)
+    want = _dct_f64(x, False)
+    err = float((a.cpu().double() - want).abs().max())
+    assert err <= _f32_bound(n, m, x)
