@@ -8,7 +8,7 @@ Prints ONE JSON line: every key of bench.py's line (combined encode+decode
 MP/s of the grid-batched paths at d=1 on the 512x768 bench image, the
 single-image rates, spreads over JXL_BENCH_REPS trials, psnr_db, bpp, the
 roofline block, whose device times are the traced rows' busy time), plus
-`device` (the card's name and power limit), `launches` (rANS kernel
+`device` (the card's name and power limit), `launches` (each kernel's
 launches over the run) and `trace` (busy time and idle share per image
 from torch.profiler). The stages and
 their definitions are in jxl_tpu_torch/bench/headline.py. bench.py's

@@ -35,8 +35,8 @@ prints as one JSON line:
    says why.
 
 Beside `bench.py`'s keys the dict holds `device` (name and power limit
-from `nvidia-smi`, or "cpu"), `launches` (the rANS kernels' launch
-counters over the run) and `trace` (stage 6's readings).
+from `nvidia-smi`, or "cpu"), `launches` (each kernel entry's
+launches over the run, `cuda_build.launch_counts`) and `trace` (stage 6's readings).
 
 Nothing here picks a device: `device` is required, and a CUDA device
 without a card raises in `resolve_device`.
@@ -62,9 +62,8 @@ from jxl_tpu_torch.codec.decode import decode_bytes, decode_bytes_device, decode
 from jxl_tpu_torch.codec.encode import encode_image, encode_image_grid, encode_image_grid_async, encode_images
 from jxl_tpu_torch.codec.layout import padded_layout
 from jxl_tpu_torch.core.device import resolve_device
+from jxl_tpu_torch.cuda_build import ENTRIES, launch_counts
 from jxl_tpu_torch.entropy import kernel_bounds
-from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
-from jxl_tpu_torch.entropy.cuda_rans_enc import encode_grouped_cuda
 from jxl_tpu_torch.metrics.quality import calculate_psnr
 
 # NVIDIA H100 SXM data sheet, at its 700 W limit: float32 outside the
@@ -72,12 +71,6 @@ from jxl_tpu_torch.metrics.quality import calculate_psnr
 PEAK_FLOPS = 67e12
 PEAK_BW = 3.35e12
 TRACE_ROW = 16  # points of the traced grid rows (bench.py's larger slope row)
-
-KERNELS = {
-    "rans_encode": encode_grouped_cuda,
-    "rans_decode": decode_grouped_cuda,
-    "rans_decode_batched": decode_grouped_batched_cuda,
-}
 
 
 def synth_kodak(h=512, w=768, seed=0):
@@ -280,7 +273,7 @@ def headline(img: np.ndarray, *, device, batch: int = 32, reps: int = 5, iters: 
     docstring); returns the JSON dict."""
     dev = resolve_device(device)
     card = card_info(dev)
-    launches0 = {k: f.launches for k, f in KERNELS.items()}
+    launches0 = launch_counts()
 
     def sync():
         if dev.type == "cuda":
@@ -351,16 +344,16 @@ def headline(img: np.ndarray, *, device, batch: int = 32, reps: int = 5, iters: 
     lanes = stream.header.lanes
     T = padded_layout(h, w, lanes)["T"]
     n_words, n_mbytes = int(stream.wcounts.sum()), int(stream.mcounts.sum())
-    n3 = encode_grouped_cuda.launches
+    n3 = launch_counts()["rans_encode"]
     with count_ops(dev) as enc_ops:
         encode_image(img, cfg, device=dev)
-    eager_e = enc_ops.bytes + (encode_grouped_cuda.launches - n3) * kernel_bounds.encode_bytes(T, lanes, n_words, n_mbytes)
-    n1 = decode_grouped_cuda.launches
+    eager_e = enc_ops.bytes + (launch_counts()["rans_encode"] - n3) * kernel_bounds.encode_bytes(T, lanes, n_words, n_mbytes)
+    n1 = launch_counts()["rans_decode"]
     with count_ops(dev) as dec_ops:
         decode_bytes_device(data, device=dev)
         sync()
     eager_d = dec_ops.bytes
-    if decode_grouped_cuda.launches > n1:  # B1's two launches (phases A and B) move one whole stream
+    if launch_counts()["rans_decode"] > n1:  # B1's two launches (phases A and B) move one whole stream
         eager_d += kernel_bounds.decode_bytes(T, lanes, n_words, n_mbytes)
     fe, fd = enc_ops.flops, dec_ops.flops
     be = encode_floor_bytes(h, w, T, lanes, n_words, n_mbytes, len(data))
@@ -430,7 +423,7 @@ def headline(img: np.ndarray, *, device, batch: int = 32, reps: int = 5, iters: 
             "decode_dispatch_fixed_ms": dec_fixed_ms,
         },
         "device": card,
-        "launches": {k: f.launches - launches0[k] for k, f in KERNELS.items()},
+        "launches": {k: n - launches0[k] for k, n in launch_counts().items() if not ENTRIES[k].probe},
         "trace": trace,
     }
     if jpeg is None:

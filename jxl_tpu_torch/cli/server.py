@@ -116,12 +116,10 @@ def serve(socket_path: str | None = None, *, device, warm: bool = True) -> int:
     if warm:
         import torch
 
-        torch.add(torch.ones((), device=dev), 1.0).item()
-        if dev.type == "cuda":
-            from jxl_tpu_torch.cuda_build import load
+        from jxl_tpu_torch.cuda_build import load_kernels
 
-            for name in ("rans_dec", "rans_enc", "screen"):
-                load(name)
+        torch.add(torch.ones((), device=dev), 1.0).item()
+        load_kernels(dev)
     try:
         os.unlink(socket_path)
     except FileNotFoundError:

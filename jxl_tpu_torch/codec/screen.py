@@ -13,11 +13,9 @@ replaces no TPU kernel: `jxl_tpu` computes the screen in host numpy.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from jxl_tpu_torch.cuda_build import check_tensor
+from jxl_tpu_torch.cuda_build import check_tensor, launch, route
 
 SUBSAMPLE_ABOVE = 1 << 24  # pixels; larger frames are screened at stride 4
 
@@ -37,39 +35,24 @@ def screen_plain(rgb_t: torch.Tensor, s: int) -> int:
 def _launch(rgb_t: torch.Tensor, s: int, out: torch.Tensor) -> None:
     """Add the count of the CUDA frame `rgb_t` at stride `s` to `out`, one
     int64 on its device, on the current stream (no read-back)."""
-    from jxl_tpu_torch.cuda_build import load
+    launch("screen", rgb_t.device, rgb_t.data_ptr(), rgb_t.shape[0], rgb_t.shape[1], s, out.data_ptr())
 
-    fn = load("screen").jxl_screen_count
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = rgb_t.device
-    with torch.cuda.device(dev):
-        err = fn(
-            rgb_t.data_ptr(), rgb_t.shape[0], rgb_t.shape[1], s, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"screen kernel launch failed: CUDA error {err}")
-    screen_count.launches += 1
+
+def _screen_kernel(rgb_t: torch.Tensor, s: int) -> int:
+    out = torch.zeros(1, dtype=torch.int64, device=rgb_t.device)
+    _launch(rgb_t, s, out)
+    return int(out.item())
 
 
 def screen_count(rgb_t: torch.Tensor) -> tuple[int, int]:
     """(count, n) of the pre-screen over the contiguous u8 [H, W, 3] frame
     `rgb_t`: the kernel on a CUDA tensor, the plain version on a CPU one.
     Raises ValueError on another dtype, shape or layout, or device."""
+    run = route("screen_count", rgb_t.device, _screen_kernel, screen_plain)
     check_tensor("rgb", rgb_t, torch.uint8, (None, None, 3), rgb_t.device)
-    if rgb_t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"screen_count: unsupported device {rgb_t.device}")
     h, w = rgb_t.shape[0], rgb_t.shape[1]
     s = screen_stride(h, w)
     n = max(0, -(-h // s) - 1) * max(0, -(-w // s) - 1)
     if n == 0:
         return 0, 0
-    if rgb_t.device.type == "cpu":
-        return screen_plain(rgb_t, s), n
-    out = torch.zeros(1, dtype=torch.int64, device=rgb_t.device)
-    _launch(rgb_t, s, out)
-    return int(out.item()), n
-
-
-screen_count.launches = 0
+    return run(rgb_t, s), n

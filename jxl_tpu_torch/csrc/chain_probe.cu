@@ -19,7 +19,7 @@
 //                  test, the shift it selects, the quotient from the
 //                  64-bit reciprocal, the remainder and the new state), its
 //                  operands loaded off the chain.
-// Not a kernel of the codec: chip_smoke.py launches it once to turn the
+// Not a kernel of the codec: probes/kernels.py launches it once to turn the
 // chains into times at the sampled SM clock.
 
 #include <cstdint>

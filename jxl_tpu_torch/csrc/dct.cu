@@ -46,7 +46,7 @@
 //   * the result leaves shared memory in the output's order, coalesced.
 // Nothing is allocated, nothing synchronises with the host; the launch
 // runs on the stream it is given. Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 3e): see PERF.md, kernel D1.
+// (then the card script, now probes/kernels.py): see PERF.md, kernel D1.
 
 #include <cstdint>
 #include <cuda_runtime.h>

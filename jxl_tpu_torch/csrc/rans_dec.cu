@@ -18,11 +18,12 @@
 // csrc/chain_probe.cu (a shared load 23.0 cycles, a ballot-popcount-add
 // 50.0; jxl_tpu_torch/entropy/kernel_bounds.py makes the bounds). Measured
 // on an H100 80GB HBM3 at 700 W, SM clock 1980 MHz, in turns with the
-// previous design (probes/rans_kernels.py): 1.820 ms for both phases, 762
-// cycles a step, 18.7% of the chain bound; the previous design (four
-// warps, one lane a thread, the word and byte windows loaded from device
-// memory at pointers the previous step had just computed, two block
-// barriers a step) took 2.614 ms. Its step clock splits warp 0's step
+// previous design (then probes/rans_kernels.py, now probes/kernels.py
+// --parent-csrc): 1.820 ms for both phases, 762 cycles a step, 18.7%
+// of the chain bound; the previous design (four warps, one lane a
+// thread, the word and byte windows loaded from device memory at pointers
+// the previous step had just computed, two block barriers a step) took
+// 2.614 ms. Its step clock splits warp 0's step
 // (cycles, clock reads included): the symbol search 317 (row loads 41,
 // probes 32/16/8 109, probes 4/2/1 167), the multiply-add and test 83,
 // the word ranks 98, the word reads and merge 201, the symbol store 25,
@@ -65,8 +66,8 @@
 //
 // Shared memory per CTA: (ROW_SLOTS * 128 + WRING + BRING) * 4 + the
 // symbol ring and barriers = 102,464 B (dynamic; the attribute is set
-// before each launch). ptxas: 48 registers, no spills (chip_smoke.py
-// phase 2 prints it).
+// before each launch). ptxas: 48 registers, no spills (probes/kernels.py
+// prints it).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -30,10 +30,11 @@
 // alone on the card by csrc/chain_probe.cu (jxl_tpu_torch/entropy/
 // kernel_bounds.py makes the bounds). Measured on an H100 80GB HBM3 at
 // 700 W, SM clock 1980 MHz, in turns with the previous design
-// (probes/rans_kernels.py): 1.152 ms, 482 cycles a step, 10.7% of the
-// chain bound; the previous design (four warps, one lane a thread, each
-// step's inputs loaded one step ahead, the emulated 32-bit division, two
-// block barriers a step) took 1.618 ms.
+// (then probes/rans_kernels.py, now probes/kernels.py --parent-csrc):
+// 1.152 ms, 482 cycles a step, 10.7% of the chain bound; the previous
+// design (four warps, one lane a thread, each step's inputs loaded one
+// step ahead, the emulated 32-bit division, two block barriers a step)
+// took 1.618 ms.
 //
 // The design: two warps per group that share nothing, so no barrier of
 // any kind sits in either loop.
@@ -66,7 +67,7 @@
 // Shared memory per CTA: 77,840 B (warp 0: two rings of SLOTS * 128 int32,
 // STAGE_W staged words, the 4097-entry table; warp 1: two rings, STAGE_B
 // staged bytes; dynamic, the attribute is set before each launch). ptxas:
-// 93 registers, no spills (chip_smoke.py phase 2 prints it).
+// 93 registers, no spills (probes/kernels.py prints it).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -39,8 +39,9 @@
 //     on most CTAs of a photograph).
 // Nothing is allocated, nothing synchronises with the host; the launch
 // runs on the stream it is given. Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 3d): 34.75 us at 4032x3024, 31% of the bound;
-// 16.87 us at 4097x4096 (s = 4); ptxas: 40 registers, no spills.
+// (then the card script, now probes/kernels.py): 34.75 us at 4032x3024,
+// 31% of the bound; 16.87 us at 4097x4096 (s = 4); ptxas: 40 registers,
+// no spills.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -14,9 +14,9 @@ The plain versions are `entropy/grouped.py:decode_grouped` and
 `decode_grouped_batched`, with the same arguments and outputs.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for
-CPU tensors, and raises on anything else. There is no fallback: a CUDA
-call that cannot launch raises. Each wrapper's `launches` counts its own
-kernel launches.
+CPU tensors, and raises on anything else (`cuda_build.route`). There is no
+fallback: a CUDA call that cannot launch raises. `cuda_build.launch_counts`
+counts the launches (entries `rans_decode`, `rans_decode_batched`).
 
 The Pallas kernel's 128-aligned windows, read-ahead slack and VMEM budget
 have no counterpart: the CUDA kernel reads at the stream pointer itself
@@ -25,11 +25,9 @@ and treats reads past a bucket's end as 0, like the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from jxl_tpu_torch.cuda_build import check_tensor
+from jxl_tpu_torch.cuda_build import check_tensor, launch, route
 from jxl_tpu_torch.entropy.grouped import GROUP, decode_grouped, decode_grouped_batched, n_groups
 
 
@@ -44,37 +42,33 @@ def i32_to_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & 0xFFFFFFFF
 
 
-def _launch(symbol: str, words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int, B: int):
-    """Launch the decode kernel through C entry `symbol` on validated CUDA
-    tensors; returns (values [B, T*lanes] int32, states [B, lanes] int64,
-    ptrs [2, B*G] int32)."""
-    from jxl_tpu_torch.cuda_build import load
-
+def _launch(entry: str, words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int, B: int, lib=None):
+    """Launch the decode kernel through C entry `entry` (`rans_decode` or
+    `rans_decode_batched`; `lib`: another build of its source) on validated
+    CUDA tensors; returns (values [B, T*lanes] int32, states [B, lanes]
+    int64, ptrs [2, B*G] int32)."""
     G = n_groups(lanes)
     dev = words_g.device
-    fn = getattr(load("rans_dec"), symbol)
-    batched = [ctypes.c_int] if symbol == "jxl_rans_decode_batched" else []
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, *batched, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        st_in = u32_to_i32(states)
-        values = torch.empty((B, T * lanes), dtype=torch.int32, device=dev)
-        st_out = torch.empty((B, lanes), dtype=torch.int32, device=dev)
-        ptr_out = torch.empty((2, B * G), dtype=torch.int32, device=dev)
-        err = fn(
-            words_g.data_ptr(), words_g.shape[1], mant_g.data_ptr(), mant_g.shape[1],
-            rows.data_ptr(), T, st_in.data_ptr(), ptrs.data_ptr(), G, *([B] if batched else []),
-            values.data_ptr(), st_out.data_ptr(), ptr_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rans_decode kernel launch ({symbol}) failed: CUDA error {err}")
+    st_in = u32_to_i32(states)
+    values = torch.empty((B, T * lanes), dtype=torch.int32, device=dev)
+    st_out = torch.empty((B, lanes), dtype=torch.int32, device=dev)
+    ptr_out = torch.empty((2, B * G), dtype=torch.int32, device=dev)
+    launch(
+        entry, dev, words_g.data_ptr(), words_g.shape[1], mant_g.data_ptr(), mant_g.shape[1], rows.data_ptr(), T,
+        st_in.data_ptr(), ptrs.data_ptr(), G, *([B] if entry == "rans_decode_batched" else []), values.data_ptr(),
+        st_out.data_ptr(), ptr_out.data_ptr(), lib=lib,
+    )
     return values, i32_to_u32(st_out), ptr_out
+
+
+def _decode_one(words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int):
+    values, st, p = _launch("rans_decode", words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes, B=1)
+    return values.reshape(T * lanes), st.reshape(lanes), p
+
+
+def _decode_batched(words_g, mant_g, states, rows, ptrs, *, T: int, lanes: int):
+    B = states.shape[0]
+    return _launch("rans_decode_batched", words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes, B=B)
 
 
 def decode_grouped_cuda(
@@ -93,6 +87,7 @@ def decode_grouped_cuda(
     words_g [G, capw] int32, mant_g [G, capm] int32, states [lanes] int64,
     rows [>= T, 128] int32, ptrs [2, G] int32 — all on one device. Returns
     (values [T*lanes] int32, states [lanes] int64, ptrs [2, G] int32)."""
+    run = route("decode_grouped_cuda", words_g.device, _decode_one, decode_grouped)
     G = n_groups(lanes)
     dev = words_g.device
     check_tensor("words_g", words_g, torch.int32, (G, None), dev)
@@ -102,16 +97,7 @@ def decode_grouped_cuda(
     check_tensor("ptrs", ptrs, torch.int32, (2, G), dev)
     if rows.shape[0] < T:
         raise ValueError(f"rows has {rows.shape[0]} steps, fewer than T={T}")
-    if dev.type == "cpu":
-        return decode_grouped(words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_grouped_cuda: unsupported device {dev}")
-    values, st, p = _launch("jxl_rans_decode", words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes, B=1)
-    decode_grouped_cuda.launches += 1
-    return values.reshape(T * lanes), st.reshape(lanes), p
-
-
-decode_grouped_cuda.launches = 0
+    return run(words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes)
 
 
 def decode_grouped_batched_cuda(
@@ -131,6 +117,7 @@ def decode_grouped_batched_cuda(
     states [B, lanes] int64, rows [>= T, B, 128] int32, ptrs [2, B*G]
     int32 — all on one device. Returns (values [B, T*lanes] int32, states
     [B, lanes] int64, ptrs [2, B*G] int32)."""
+    run = route("decode_grouped_batched_cuda", words_g.device, _decode_batched, decode_grouped_batched)
     G = n_groups(lanes)
     dev = words_g.device
     check_tensor("states", states, torch.int64, (None, lanes), dev)
@@ -143,13 +130,4 @@ def decode_grouped_batched_cuda(
     check_tensor("ptrs", ptrs, torch.int32, (2, B * G), dev)
     if rows.shape[0] < T:
         raise ValueError(f"rows has {rows.shape[0]} steps, fewer than T={T}")
-    if dev.type == "cpu":
-        return decode_grouped_batched(words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_grouped_batched_cuda: unsupported device {dev}")
-    out = _launch("jxl_rans_decode_batched", words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes, B=B)
-    decode_grouped_batched_cuda.launches += 1
-    return out
-
-
-decode_grouped_batched_cuda.launches = 0
+    return run(words_g, mant_g, states, rows, ptrs, T=T, lanes=lanes)

@@ -20,11 +20,9 @@ to the reported counts.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from jxl_tpu_torch.cuda_build import check_tensor
+from jxl_tpu_torch.cuda_build import check_tensor, launch, route
 from jxl_tpu_torch.entropy.cuda_rans import i32_to_u32
 from jxl_tpu_torch.entropy.grouped import (
     GROUP,
@@ -57,32 +55,19 @@ def encode_grouped_plain(tokp, mant, rows, *, T: int, lanes: int, capw: int, cap
     return words, mbytes, states, wcounts, mcounts
 
 
-def _launch(tokp, mant, rows, *, T: int, lanes: int, capw: int, capm: int):
-    from jxl_tpu_torch.cuda_build import load
-
+def _launch(tokp, mant, rows, *, T: int, lanes: int, capw: int, capm: int, lib=None):
+    """One launch of the encode kernel (`lib`: another build of its source)
+    on validated CUDA tensors; the outputs of encode_grouped_plain."""
     G = lanes // GROUP
     dev = tokp.device
-    lib = load("rans_enc")
-    fn = lib.jxl_rans_encode
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        words = torch.zeros((G, capw), dtype=torch.int32, device=dev)
-        mbytes = torch.zeros((G, capm), dtype=torch.int32, device=dev)
-        states = torch.empty(lanes, dtype=torch.int32, device=dev)
-        counts = torch.empty((2, G), dtype=torch.int32, device=dev)
-        err = fn(
-            tokp.data_ptr(), mant.data_ptr(), rows.data_ptr(), T, G, capw, capm,
-            words.data_ptr(), mbytes.data_ptr(), states.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rans_encode kernel launch failed: CUDA error {err}")
-    encode_grouped_cuda.launches += 1
+    words = torch.zeros((G, capw), dtype=torch.int32, device=dev)
+    mbytes = torch.zeros((G, capm), dtype=torch.int32, device=dev)
+    states = torch.empty(lanes, dtype=torch.int32, device=dev)
+    counts = torch.empty((2, G), dtype=torch.int32, device=dev)
+    launch(
+        "rans_encode", dev, tokp.data_ptr(), mant.data_ptr(), rows.data_ptr(), T, G, capw, capm, words.data_ptr(),
+        mbytes.data_ptr(), states.data_ptr(), counts.data_ptr(), lib=lib,
+    )
     return words, mbytes, i32_to_u32(states), counts[0], counts[1]
 
 
@@ -93,6 +78,7 @@ def encode_grouped_cuda(tokp, mant, rows, *, T: int, lanes: int, capw: int, capm
     CUDA tensors run the kernel, CPU tensors the plain version. If a
     bucket overflows, runs once more with caps grown to the counts (the
     returned buckets then have the grown widths)."""
+    run = route("encode_grouped_cuda", tokp.device, _launch, encode_grouped_plain)
     n_groups(lanes)  # validates the lane count
     dev = tokp.device
     check_tensor("tokp", tokp, torch.int32, (T * lanes,), dev)
@@ -105,12 +91,6 @@ def encode_grouped_cuda(tokp, mant, rows, *, T: int, lanes: int, capw: int, capm
     lo, hi = torch.stack([tokp.min(), tokp.max()]).tolist() if T > 0 else (0, 0)
     if lo < 0 or hi >= ALPHABET:
         raise ValueError(f"tokens must lie in [0, {ALPHABET}), got [{lo}, {hi}]")
-    if dev.type == "cpu":
-        run = encode_grouped_plain
-    elif dev.type == "cuda":
-        run = _launch
-    else:
-        raise ValueError(f"encode_grouped_cuda: unsupported device {dev}")
     out = run(tokp, mant, rows, T=T, lanes=lanes, capw=capw, capm=capm)
     need = torch.stack([out[3].max(), out[4].max()]).tolist()
     if need[0] > capw or need[1] > capm:
@@ -119,6 +99,3 @@ def encode_grouped_cuda(tokp, mant, rows, *, T: int, lanes: int, capw: int, capm
             capw=max(capw, _r128(need[0])), capm=max(capm, _r128(need[1])),
         )
     return out
-
-
-encode_grouped_cuda.launches = 0

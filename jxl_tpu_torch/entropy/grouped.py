@@ -10,8 +10,8 @@ pointer, distributed by intra-group rank.
 These functions are the plain versions of the CUDA kernels in
 `entropy/cuda_rans.py` (decode) and `entropy/cuda_rans_enc.py` (encode):
 same arguments, same outputs, bit for bit. They run on any device; the
-kernel wrappers use them for CPU tensors, and the tests and
-`chip_smoke.py` compare the kernels with them. The scans are Python loops
+kernel wrappers use them for CPU tensors, and the tests (on the card,
+`tests/test_torch_cuda.py`) compare the kernels with them. The scans are Python loops
 over the steps, vectorised over lanes. State maths runs in int64, masked
 to 32 bits where the reference's uint32 arithmetic wraps.
 

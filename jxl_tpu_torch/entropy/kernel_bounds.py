@@ -21,7 +21,7 @@ lengths of its data:
   SM clock sampled beside the measurement.
 
 `cycles_per_step` turns a measured time back into SM cycles per step.
-`chip_smoke.py` prints all of these beside each kernel's time.
+`probes/kernels.py` prints all of these beside each kernel's time.
 """
 
 from __future__ import annotations
@@ -80,25 +80,20 @@ def cycles_per_step(ms: float, T: int, clock_mhz: float) -> float:
 def measure_chain_cycles(device, links: int = PROBE_LINKS) -> dict:
     """SM cycles per link of each chain of `csrc/chain_probe.cu` on the CUDA
     `device`: one warp, `links` links a chain, the second of two launches
-    (the first warms the instruction cache)."""
-    import ctypes
+    (the first warms the instruction cache). No plain version: any other
+    device raises ValueError."""
+    from jxl_tpu_torch.cuda_build import route
 
+    return route("measure_chain_cycles", device, _chain_cycles)(device, links)
+
+
+def _chain_cycles(device, links: int) -> dict:
     import torch
 
-    from jxl_tpu_torch.cuda_build import load
+    from jxl_tpu_torch.cuda_build import launch
 
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"measure_chain_cycles needs a CUDA device, got {dev}")
-    fn = load("chain_probe").jxl_chain_probe
-    fn.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        cycles = torch.zeros(len(CHAINS), dtype=torch.int64, device=dev)
-        sink = torch.zeros(32, dtype=torch.int32, device=dev)
-        for _ in range(2):
-            err = fn(links, 0x9E3779B9, cycles.data_ptr(), sink.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"chain_probe kernel launch failed: CUDA error {err}")
-        totals = cycles.tolist()
-    return chain_cycles(totals, links)
+    cycles = torch.zeros(len(CHAINS), dtype=torch.int64, device=device)
+    sink = torch.zeros(32, dtype=torch.int32, device=device)
+    for _ in range(2):
+        launch("chain_probe", device, links, 0x9E3779B9, cycles.data_ptr(), sink.data_ptr())
+    return chain_cycles(cycles.tolist(), links)

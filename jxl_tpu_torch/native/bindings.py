@@ -3,8 +3,8 @@
 The core is the repository's third, independent implementation of the
 interleaved rANS scheme (32-bit states, 16-bit words in consumption order,
 12-bit frequencies) and of the MSB-first bit packer: plain C++ loops, one
-symbol at a time. The tests and `chip_smoke.py` hold the port's coder and
-packers to it.
+symbol at a time. The tests (on the CPU and on the card) hold the port's
+coder and packers to it.
 
 The source is compiled on first use with one g++ call (the flags of
 `native/build.sh`) into the repository's `build/native/` directory; the

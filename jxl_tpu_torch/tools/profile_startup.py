@@ -10,8 +10,8 @@ attributed:
 
 Phases: import torch, import the port, device context (on CUDA the first
 allocation creates it), first tiny launch, the kernels' build or load
-(rANS and screen, `cuda_build.load`; nothing to build on the CPU,
-where the plain versions run), read the input, first and second encode /
+(every library of `cuda_build.KERNEL_SOURCES`; nothing to build on the
+CPU, where the plain versions run), read the input, first and second encode /
 decode, write the output (under benchmarks/tools/profile_startup/ unless
 --out). Prints one JSON
 line: {"total_s", "phase_s": {phase: seconds since the previous mark},
@@ -59,12 +59,9 @@ def main(argv=None):
     mark(f"device_context[{dev.type}]")
     torch.add(torch.ones((), device=dev), 1.0).cpu()
     mark("first_tiny_launch")
-    if dev.type == "cuda":
-        from jxl_tpu_torch.cuda_build import load
+    from jxl_tpu_torch.cuda_build import load_kernels
 
-        load("rans_enc")
-        load("rans_dec")
-        load("screen")
+    load_kernels(dev)
     mark("kernel_build_or_load")
 
     if encode_mode:

@@ -10,8 +10,8 @@ A CPU tensor runs the two products as torch.matmul calls, in full float32
 reference. A CUDA tensor runs the hand-written kernel `csrc/dct.cu` (D1)
 on the caller's view as it is, strides and all: one launch for sides up
 to 64, two (rows, then columns) above. `plan` lays the launches out, the
-bases live on the device (`device_basis`), and `dct2d_cuda.launches`
-counts the launches.
+bases live on the device (`device_basis`); `cuda_build.launch_counts`
+counts the launches (entry `dct2d`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from jxl_tpu_torch.cuda_build import launch, route
 
 
 @lru_cache(maxsize=None)
@@ -48,22 +50,23 @@ def dct_matrix(n: int, device) -> torch.Tensor:
     return device_basis(n, torch.device(device))[0]
 
 
+def dct2d_plain(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The 2D DCT (or its inverse) as two torch.matmul calls: the CPU path."""
+    n, m = x.shape[-2], x.shape[-1]
+    dn, dm = dct_matrix(n, x.device), dct_matrix(m, x.device)
+    if inverse:
+        return torch.matmul(torch.matmul(dn.T, x), dm)
+    return torch.matmul(torch.matmul(dn, x), dm.T)
+
+
 def dct2d(blocks: torch.Tensor) -> torch.Tensor:
     """2D DCT over the last two dims: [..., n, m] -> [..., n, m]."""
-    if blocks.is_cuda:
-        return dct2d_cuda(blocks, inverse=False)
-    n, m = blocks.shape[-2], blocks.shape[-1]
-    dn, dm = dct_matrix(n, blocks.device), dct_matrix(m, blocks.device)
-    return torch.matmul(torch.matmul(dn, blocks), dm.T)
+    return route("dct2d", blocks.device, dct2d_cuda, dct2d_plain)(blocks, inverse=False)
 
 
 def idct2d(coeffs: torch.Tensor) -> torch.Tensor:
     """Inverse 2D DCT over the last two dims (transpose of dct2d)."""
-    if coeffs.is_cuda:
-        return dct2d_cuda(coeffs, inverse=True)
-    n, m = coeffs.shape[-2], coeffs.shape[-1]
-    dn, dm = dct_matrix(n, coeffs.device), dct_matrix(m, coeffs.device)
-    return torch.matmul(torch.matmul(dn.T, coeffs), dm)
+    return route("idct2d", coeffs.device, dct2d_cuda, dct2d_plain)(coeffs, inverse=True)
 
 
 ONE_LAUNCH_MAX = 64  # sides up to this run both passes in one launch
@@ -157,16 +160,6 @@ def plan(shape: tuple, strides: tuple, dtype) -> tuple:
 
 
 @lru_cache(maxsize=None)
-def _kernel():
-    from jxl_tpu_torch.cuda_build import load
-
-    fn = load("dct").jxl_dct2d
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@lru_cache(maxsize=None)
 def _basis_ptr(n: int, device: torch.device, transposed: bool) -> int:
     """Address of D_n (or D_n^T) in `device_basis(n, device)`."""
     return device_basis(n, device)[int(transposed)].data_ptr()
@@ -184,14 +177,11 @@ def _meta(lau: Launch):
     return (ctypes.c_longlong * len(meta))(*meta)
 
 
-def _run(fn, x: torch.Tensor, out: torch.Tensor, lau: Launch, inverse: bool, stream: int) -> None:
+def _run(x: torch.Tensor, out: torch.Tensor, lau: Launch, inverse: bool) -> None:
     # each pass reads M^T, M its matrix: D^T when forward, D when inverse
     mr = _basis_ptr(lau.rows, x.device, not inverse)
     mq = _basis_ptr(lau.cols, x.device, not inverse) if lau.two else mr
-    err = fn(x.data_ptr(), out.data_ptr(), mr, mq, _meta(lau), stream)
-    if err != 0:
-        raise RuntimeError(f"dct kernel launch failed: CUDA error {err}")
-    dct2d_cuda.launches += 1
+    launch("dct2d", x.device, x.data_ptr(), out.data_ptr(), mr, mq, _meta(lau))
 
 
 def dct2d_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -199,22 +189,13 @@ def dct2d_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     last two dims, through D1: a contiguous [..., n, m] result."""
     launches = plan(x.shape, x.stride(), x.dtype)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    if not launches:
-        return out
-    fn = _kernel()
-    dev = x.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if len(launches) == 1:
-            _run(fn, x, out, launches[0], inverse, stream)
-        else:
-            mid = torch.empty((*x.shape[:-2], x.shape[-1], x.shape[-2]), dtype=torch.float32, device=dev)
-            _run(fn, x, mid, launches[0], inverse, stream)
-            _run(fn, mid, out, launches[1], inverse, stream)
+    if len(launches) == 1:
+        _run(x, out, launches[0], inverse)
+    elif launches:
+        mid = torch.empty((*x.shape[:-2], x.shape[-1], x.shape[-2]), dtype=torch.float32, device=x.device)
+        _run(x, mid, launches[0], inverse)
+        _run(mid, out, launches[1], inverse)
     return out
-
-
-dct2d_cuda.launches = 0
 
 
 @lru_cache(maxsize=None)

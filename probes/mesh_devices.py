@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The mesh paths of jxl_tpu_torch/distributed over DISTINCT devices,
-beside chip_smoke.py (whose phase 8 runs them on slots of one card):
+beside the card tests that run them on slots of one card:
 
     python3 probes/mesh_devices.py [--devices cuda:0 cuda:1 ...] [--size HxW]
 
@@ -81,7 +81,7 @@ def main() -> int:
     from jxl_tpu_torch.core.device import resolve_device
     from jxl_tpu_torch.distributed.mesh import make_mesh
     from jxl_tpu_torch.distributed.sharded import encode_batch_sharded, sharded_epf
-    from jxl_tpu_torch.entropy.cuda_rans_enc import encode_grouped_cuda
+    from jxl_tpu_torch.cuda_build import launch_counts
     from jxl_tpu_torch.transforms.epf import epf_apply
 
     devs = [resolve_device(d) for d in devices]
@@ -138,7 +138,7 @@ def main() -> int:
         raise AssertionError("encode_batch_sharded differs from encode_image")
     walls = {}
     for tag, fn in (("sharded", sharded), ("sequential", sequential), ("sharded again", sharded), ("threads", threaded), ("threads again", threaded)):
-        n0 = encode_grouped_cuda.launches
+        n0 = launch_counts()["rans_encode"]
         sync()
         t0 = time.perf_counter()
         out = fn()
@@ -146,8 +146,8 @@ def main() -> int:
         walls[tag] = time.perf_counter() - t0
         if out != want:
             raise AssertionError(f"{tag}: containers differ")
-        if cuda and fn is not threaded and encode_grouped_cuda.launches - n0 != len(imgs):
-            raise AssertionError(f"{tag}: {encode_grouped_cuda.launches - n0} encode launches counted for {len(imgs)} encodes")
+        if cuda and fn is not threaded and launch_counts()["rans_encode"] - n0 != len(imgs):
+            raise AssertionError(f"{tag}: {launch_counts()['rans_encode'] - n0} encode launches counted for {len(imgs)} encodes")
     print(
         f"[mesh_devices] encode_batch_sharded, {len(imgs)} images of {h}x{w} on data={n}: byte-identical to "
         "encode_image on the first device; wall " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())

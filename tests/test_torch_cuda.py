@@ -7,11 +7,14 @@ other test modules, so it runs on a machine without jax:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -m cuda -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from jxl_tpu_torch.codec.screen import screen_count, screen_plain, screen_stride
+from jxl_tpu_torch.cuda_build import launch_counts
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_cuda, encode_grouped_plain
 from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched, kernel_rows
@@ -19,6 +22,8 @@ from jxl_tpu_torch.entropy.rans import quantize_histograms_t
 from jxl_tpu_torch.entropy.tokens import ALPHABET, tokenize
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -66,10 +71,10 @@ def test_kernels_match_plain(dev, lanes, T):
     tok, mant, rows, vals = _stream(T, lanes, seed=lanes + T, dev=dev)
     capw, capm = enc_caps(T, lanes)
     kw = dict(T=T, lanes=lanes, capw=capw, capm=capm)
-    n0 = encode_grouped_cuda.launches
+    n0 = launch_counts()["rans_encode"]
     enc_k = encode_grouped_cuda(tok, mant, rows, **kw)
     enc_p = encode_grouped_plain(tok, mant, rows, **kw)
-    assert encode_grouped_cuda.launches == n0 + 1
+    assert launch_counts()["rans_encode"] == n0 + 1
     for a, b in zip(enc_k, enc_p):
         assert torch.equal(a.cpu(), b.cpu())
 
@@ -117,13 +122,13 @@ def test_batched_decode_matches_plain(dev, B, lanes):
     rows_b = torch.stack(rows, dim=1)
     ptr0 = torch.zeros((2, B * G), dtype=torch.int32, device=dev)
     out = {}
-    n0 = decode_grouped_batched_cuda.launches
+    n0 = launch_counts()["rans_decode_batched"]
     for name, fn in (("kernel", decode_grouped_batched_cuda), ("plain", decode_grouped_batched)):
         va, st, p = fn(words, mants, states, rows_b[:t_a].contiguous(), ptr0, T=t_a, lanes=lanes)
         vb, st2, p2 = fn(words, mants, st, rows_b[t_a:].contiguous(), p, T=T - t_a, lanes=lanes)
         out[name] = (va, st, p, vb, st2, p2)
     torch.cuda.synchronize()
-    assert decode_grouped_batched_cuda.launches == n0 + 2
+    assert launch_counts()["rans_decode_batched"] == n0 + 2
     for a, b in zip(out["kernel"], out["plain"]):
         assert torch.equal(a.cpu(), b.cpu())
     got = torch.cat([out["kernel"][0], out["kernel"][3]], dim=1).cpu().numpy()
@@ -137,24 +142,34 @@ def test_batched_decode_matches_plain(dev, B, lanes):
         assert torch.equal(single[0].cpu(), out["kernel"][0][i].cpu())
 
 
-def test_grid_row_on_card(dev):
-    """A grid row encoded and decoded on the card: one encode launch per
-    point, B2 twice for the row and B1 not at all; values equal the CPU's,
-    pixels within 1 LSB of the CPU's."""
-    from jxl_tpu_torch.codec.config import CodecConfig
+def _since(c0: dict) -> dict:
+    """Launches of each entry since the snapshot c0, once the card is done."""
+    torch.cuda.synchronize()
+    return {k: v - c0[k] for k, v in launch_counts().items()}
+
+
+@pytest.mark.parametrize("strategy", ["BASELINE", "HOMOGENEITY_PARTITIONING", "HOMOGENEITY_FACTORED_ENTROPY", "COMBINED",
+                                      "HOMOGENEITY_RD_GATED"])
+def test_grid_row_on_card(dev, strategy):
+    """A grid row encoded and decoded on the card under each strategy: one
+    encode launch per point, the screen once, B2 twice for the row and B1
+    not at all; values equal the CPU's, pixels within 1 LSB of the CPU's;
+    BASELINE's containers equal encode_image's."""
+    from jxl_tpu_torch.codec.config import CodecConfig, Strategy
     from jxl_tpu_torch.codec.container import read_container
     from jxl_tpu_torch.codec.decode import decode_bytes_grid_stacked, decode_values_grid
-    from jxl_tpu_torch.codec.encode import encode_image_grid
+    from jxl_tpu_torch.codec.encode import encode_image, encode_image_grid
 
     img = _card_image()
     ds = [0.5, 1.0, 3.0, 8.0]
-    e0, b0, s0 = encode_grouped_cuda.launches, decode_grouped_batched_cuda.launches, decode_grouped_cuda.launches
-    datas = encode_image_grid(img, CodecConfig(effort=7), ds, device=dev)
+    c0 = launch_counts()
+    datas = encode_image_grid(img, CodecConfig(effort=7, strategy=Strategy[strategy]), ds, device=dev)
     out = decode_bytes_grid_stacked(datas, device=dev)
-    torch.cuda.synchronize()
-    assert encode_grouped_cuda.launches - e0 >= len(ds)
-    assert decode_grouped_batched_cuda.launches - b0 == 2
-    assert decode_grouped_cuda.launches == s0
+    n = _since(c0)
+    assert n["rans_encode"] >= len(ds) and n["screen"] == 1
+    assert n["rans_decode_batched"] == 2 and n["rans_decode"] == 0
+    if strategy == "BASELINE":
+        assert datas == [encode_image(img, CodecConfig(distance=d, effort=7), device=dev) for d in ds]
     streams = [read_container(d) for d in datas]
     assert torch.equal(decode_values_grid(streams, dev).cpu(), decode_values_grid(streams, "cpu"))
     ref = decode_bytes_grid_stacked(datas, device="cpu")
@@ -166,9 +181,9 @@ def test_encode_overflow_relaunches_kernel(dev):
     lanes, T = 256, 64
     tok, mant, rows, _vals = _stream(T, lanes, seed=4, dev=dev)
     capw, _capm = enc_caps(T, lanes)
-    n0 = encode_grouped_cuda.launches
+    n0 = launch_counts()["rans_encode"]
     out = encode_grouped_cuda(tok, mant, rows, T=T, lanes=lanes, capw=capw, capm=128)
-    assert encode_grouped_cuda.launches == n0 + 2
+    assert launch_counts()["rans_encode"] == n0 + 2
     ref = encode_grouped_plain(tok, mant, rows, T=T, lanes=lanes, capw=capw, capm=out[1].shape[1])
     assert out[1].shape[1] > 128 and int(out[4].max()) <= out[1].shape[1]
     for a, b in zip(out, ref):
@@ -325,19 +340,93 @@ def _card_image():
     return (np.stack([lum, lum * 0.9, lum * 0.8], axis=-1) * 255).astype(np.uint8)
 
 
-def test_codec_on_card_matches_cpu(dev):
+@pytest.fixture
+def dct_calls(monkeypatch):
+    """Every dct2d / idct2d call of the codec (the names strategy.acs and
+    codec.decode call), recorded as (on CUDA, numel, larger side);
+    `.expected_d1()` is what D1 must launch for them: one a call with samples,
+    two above side 64."""
+    from jxl_tpu_torch.codec import decode as dec_mod
+    from jxl_tpu_torch.strategy import acs as acs_mod
+
+    class Calls(list):
+        def expected_d1(self):
+            return sum((2 if side > 64 else 1) for _cuda, numel, side in self if numel)
+
+    calls = Calls()
+
+    def counted(fn):
+        def wrapper(x):
+            calls.append((x.is_cuda, x.numel(), max(x.shape[-2:])))
+            return fn(x)
+
+        return wrapper
+
+    for mod, name in ((acs_mod, "dct2d"), (acs_mod, "idct2d"), (dec_mod, "idct2d")):
+        monkeypatch.setattr(mod, name, counted(getattr(mod, name)))
+    return calls
+
+
+def _bench_image():
+    from jxl_tpu_torch.bench.headline import synth_kodak
+
+    return synth_kodak()  # bench.py's image, 512x768, seed 0
+
+
+def _synth02():
+    from jxl_tpu_torch.core.io import read_png_rgb8
+
+    return read_png_rgb8(os.path.join(REPO, "test_images", "synth", "synth02.png"))  # 512x768, 65 colours
+
+
+# the bench image at d=1 e7 (hardware-independent): 38.4292 dB, 1.5312 bpp
+ANCHOR_PSNR_DB, PSNR_TOL_DB = 38.43, 0.05
+ANCHOR_BPP, BPP_TOL_REL = 1.5313, 0.005
+
+CODEC_CASES = {  # image, distance, effort
+    "card d=1 e7": (_card_image, 1.0, 7),
+    "bench d=1 e7": (_bench_image, 1.0, 7),
+    "bench d=1 e8": (_bench_image, 1.0, 8),
+    "bench d=1 e9": (_bench_image, 1.0, 9),
+    "synth02 d=0": (_synth02, 0.0, 7),
+    "bench d=0": (_bench_image, 0.0, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(CODEC_CASES))
+def test_codec_on_card_matches_cpu(dev, case, dct_calls):
+    """encode_image and decode_bytes on the card: the value stream equal to
+    the CPU's decode of the same bytes, pixels within 1 LSB of it, and D1
+    launched exactly for the codec's DCT calls. The main path (d=1 e7)
+    launches B3 once, B1 twice, the screen once and B2 never, and the bench
+    image meets its quality anchor; d = 0 round-trips exactly, synth02 on
+    the palette arm, the bench image on the plain one."""
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.container import read_container
     from jxl_tpu_torch.codec.decode import decode_bytes, decode_values
     from jxl_tpu_torch.codec.encode import encode_image
 
-    img = _card_image()
-    data = encode_image(img, CodecConfig(distance=1.0, effort=7), device=dev)
+    make, distance, effort = CODEC_CASES[case]
+    img = make()
+    c0 = launch_counts()
+    data = encode_image(img, CodecConfig(distance=distance, effort=effort), device=dev)
+    a = decode_bytes(data, device=dev).astype(np.int32)
+    n = _since(c0)
+    assert all(cuda for cuda, _n, _side in dct_calls) and n["dct2d"] == dct_calls.expected_d1()
     s = read_container(data)
     assert torch.equal(decode_values(s, dev).cpu(), decode_values(s, "cpu"))
-    a = decode_bytes(data, device=dev).astype(np.int32)
     b = decode_bytes(data, device="cpu").astype(np.int32)
     assert np.abs(a - b).max() <= 1
+    assert n["rans_encode"] >= 1 and n["rans_decode"] >= 2 and n["rans_decode_batched"] == 0
+    if (distance, effort) == (1.0, 7):
+        assert (n["rans_encode"], n["rans_decode"], n["screen"]) == (1, 2, 1) and n["dct2d"] >= 1
+    if case == "bench d=1 e7":
+        mse = np.mean((a - img.astype(np.int32)) ** 2)
+        assert abs(10 * np.log10(255.0**2 / mse) - ANCHOR_PSNR_DB) <= PSNR_TOL_DB
+        assert abs(len(data) * 8 / (img.shape[0] * img.shape[1]) - ANCHOR_BPP) <= BPP_TOL_REL * ANCHOR_BPP
+    if distance == 0.0:
+        np.testing.assert_array_equal(a, img)
+        assert bool(s.acs_extra) is (case == "synth02 d=0")
 
 
 def _lossless_stream(dev, h: int = 64, w: int = 96, seed: int = 7):
@@ -363,9 +452,9 @@ def test_lossless_stream_kernels_match_plain(dev):
     tokp, mantp, rows, lay, lanes = _lossless_stream(dev)
     T, t_a = lay["T"], lay["t_a"]
     capw, capm = enc_caps(T, lanes)
-    n0 = encode_grouped_cuda.launches
+    n0 = launch_counts()["rans_encode"]
     enc_k = encode_grouped_cuda(tokp, mantp, rows, T=T, lanes=lanes, capw=capw, capm=capm)
-    assert encode_grouped_cuda.launches == n0 + 2 and enc_k[1].shape[1] > capm
+    assert launch_counts()["rans_encode"] == n0 + 2 and enc_k[1].shape[1] > capm
     enc_p = encode_grouped_plain(tokp, mantp, rows, T=T, lanes=lanes, capw=enc_k[0].shape[1], capm=enc_k[1].shape[1])
     for a, b in zip(enc_k, enc_p):
         assert torch.equal(a.cpu(), b.cpu())
@@ -400,10 +489,10 @@ def test_modular_row_on_card(dev):
     np.testing.assert_array_equal(decode_bytes(data, device=dev), img)
     rgb_t = torch.from_numpy(img).to(dev)
     datas = _modular_grid_async(rgb_t, CodecConfig(), [0.5, 1.5, 4.0], "", encoder_knobs())()
-    b0, s0 = decode_grouped_batched_cuda.launches, decode_grouped_cuda.launches
+    b0, s0 = launch_counts()["rans_decode_batched"], launch_counts()["rans_decode"]
     out = decode_bytes_grid_stacked(datas, device=dev)
     torch.cuda.synchronize()
-    assert decode_grouped_batched_cuda.launches - b0 == 2 and decode_grouped_cuda.launches == s0
+    assert launch_counts()["rans_decode_batched"] - b0 == 2 and launch_counts()["rans_decode"] == s0
     streams = [read_container(d) for d in datas]
     assert torch.equal(decode_values_grid(streams, dev).cpu(), decode_values_grid(streams, "cpu"))
     assert torch.equal(out.cpu(), decode_bytes_grid_stacked(datas, device="cpu"))
@@ -414,6 +503,16 @@ BATTERY_BARS = {
     "mse": ("rel", 1e-6), "psnr": ("abs", 1e-5), "ssim": ("abs", 1e-5), "ms_ssim": ("abs", 1e-5),
     "butteraugli": ("rel", 3e-4), "butteraugli_pnorm": ("rel", 1e-4), "ssimulacra2": ("abs", 0.05),
 }
+
+
+def _assert_within_bars(got: dict, want: dict):
+    for k, (kind, bar) in BATTERY_BARS.items():
+        if want[k] in (0.0, float("inf")):
+            assert got[k] == want[k], k
+        elif kind == "rel":
+            assert abs(got[k] - want[k]) <= bar * abs(want[k]), (k, got[k], want[k])
+        else:
+            assert abs(got[k] - want[k]) <= bar, (k, got[k], want[k])
 
 
 def _distortions(img):
@@ -437,13 +536,7 @@ def test_battery_on_card_matches_cpu(dev):
     card = metric_battery_grid_async(o, c)()
     cpu = metric_battery_grid_async(img, stack, device="cpu")()
     for got, want in zip(card, cpu):
-        for k, (kind, bar) in BATTERY_BARS.items():
-            if want[k] in (0.0, float("inf")):
-                assert got[k] == want[k], k
-            elif kind == "rel":
-                assert abs(got[k] - want[k]) <= bar * abs(want[k]), (k, got[k], want[k])
-            else:
-                assert abs(got[k] - want[k]) <= bar, (k, got[k], want[k])
+        _assert_within_bars(got, want)
 
 
 def test_identical_images_score_exactly_on_card(dev):
@@ -488,9 +581,9 @@ def test_real_stream_at_1024_lanes_matches_plain(dev):
     tokp, mantp, rows, _f = entropy_inputs(token, mant, _step_ctx_v8(lay, q_sorted), lay, lanes)
     capw, capm = enc_caps(T, lanes)
     kw = dict(T=T, lanes=lanes, capw=capw, capm=capm)
-    n0 = encode_grouped_cuda.launches
+    n0 = launch_counts()["rans_encode"]
     enc_k = encode_grouped_cuda(tokp, mantp, rows, **kw)
-    assert encode_grouped_cuda.launches == n0 + 1  # a d = 1 stream stays inside the default caps
+    assert launch_counts()["rans_encode"] == n0 + 1  # a d = 1 stream stays inside the default caps
     for a, b in zip(enc_k, encode_grouped_plain(tokp, mantp, rows, **kw)):
         assert torch.equal(a, b)
     wg, mg = _front(enc_k[0], enc_k[3]), _front(enc_k[1], enc_k[4])
@@ -505,28 +598,86 @@ def test_real_stream_at_1024_lanes_matches_plain(dev):
     assert torch.equal(out["kernel"][5], torch.stack([enc_k[3], enc_k[4]]))  # consumed exactly what was written
 
 
-def test_striped_container_on_card_matches_cpu(dev):
-    """A striped JXTS container on the card: sections byte-identical to the
-    CPU's encode, the stitched decode within 1 LSB of the CPU's, B3 once
-    and B1 twice per section; and the sharded form over slots of the card
-    gives the same bytes."""
+def _mixed(h: int = 512, w: int = 768) -> np.ndarray:
+    """A UI page (flat, with bars of text) beside a photo."""
+    from jxl_tpu_torch.bench.headline import synth_kodak
+
+    rng = np.random.default_rng(42)
+    ui = np.full((h, w // 2, 3), 240, np.uint8)
+    for _ in range(96):
+        y, x = rng.integers(0, h - 8), rng.integers(0, w // 2 - 44)
+        ui[y : y + 6, x : x + int(rng.integers(10, 40))] = [40, 40, 90]
+    return np.concatenate([ui, synth_kodak(h, w - w // 2, seed=11)], axis=1)
+
+
+@pytest.mark.parametrize("case", ["photo", "mixed", "d0"])
+def test_striped_container_on_card_matches_cpu(dev, case):
+    """A striped JXTS container on the card: the stitched decode within
+    1 LSB of the CPU's. A photo at d=3 in 3 stripes: sections the size of
+    the CPU's encode, B3 once and B1 twice per section, and the sharded
+    form over slots of the card (VarDCT only) gives the same bytes. UI
+    beside a photo at d=1 e5 in 4 stripes: modular and VarDCT sections in
+    one container, above 30 dB. The bench image at d=0 in 3 stripes:
+    exact."""
     from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container_header
     from jxl_tpu_torch.codec.decode import decode_bytes
     from jxl_tpu_torch.codec.tiled import encode_image_striped, encode_image_striped_sharded, read_striped
     from jxl_tpu_torch.distributed.mesh import make_mesh
 
-    img = _photo(256, 768, seed=5)
-    cfg = CodecConfig(distance=3.0, effort=7)
-    e0, d0 = encode_grouped_cuda.launches, decode_grouped_cuda.launches
-    data = encode_image_striped(img, cfg, n_stripes=3, device=dev)
+    if case == "photo":
+        img, cfg, k = _photo(256, 768, seed=5), CodecConfig(distance=3.0, effort=7), 3
+    elif case == "mixed":
+        img, cfg, k = _mixed(), CodecConfig(distance=1.0, effort=5), 4
+    else:
+        img, cfg, k = _bench_image(), CodecConfig(distance=0.0, effort=7), 3
+    c0 = launch_counts()
+    data = encode_image_striped(img, cfg, n_stripes=k, device=dev)
     out = decode_bytes(data, device=dev)
-    torch.cuda.synchronize()
-    assert encode_grouped_cuda.launches - e0 == 3 and decode_grouped_cuda.launches - d0 == 6
-    ref = encode_image_striped(img, cfg, n_stripes=3, device="cpu")
-    sizes = [(len(a), len(b)) for a, b in zip(read_striped(data)[2], read_striped(ref)[2])]
-    assert all(abs(a - b) <= 0.005 * b for a, b in sizes), sizes  # float order may flip a near-tie decision
+    n = _since(c0)
     assert np.abs(out.astype(np.int32) - decode_bytes(data, device="cpu")).max() <= 1
-    assert encode_image_striped_sharded(img, cfg, make_mesh([dev] * 3)) == data
+    if case == "photo":
+        assert n["rans_encode"] == 3 and n["rans_decode"] == 6
+        assert encode_image_striped_sharded(img, cfg, make_mesh([dev] * 3)) == data
+        ref = encode_image_striped(img, cfg, n_stripes=3, device="cpu")
+        sizes = [(len(a), len(b)) for a, b in zip(read_striped(data)[2], read_striped(ref)[2])]
+        assert all(abs(a - b) <= 0.005 * b for a, b in sizes), sizes  # float order may flip a near-tie decision
+    elif case == "d0":
+        assert len(read_striped(data)[2]) == 3
+        np.testing.assert_array_equal(out, img)
+    else:
+        modes = [read_container_header(sec).lossless for sec in read_striped(data)[2]]
+        assert any(modes) and not all(modes), modes
+        mse = np.mean((out.astype(np.float64) - img) ** 2)
+        assert 10 * np.log10(255.0**2 / mse) > 30.0
+
+
+@pytest.mark.parametrize("distance", [1.0, 3.0])
+def test_striped_seams_on_card(dev, distance):
+    """The bench image in 3 stripes on the card: the stitched decode equals
+    the paste of the sections' own decodes more than 8 px from every seam;
+    within 8 px of one it differs somewhere exactly when the sections
+    signal EPF (the filter reads across the seam), which they do at d=3;
+    pixels within 1 LSB of the CPU's decode of the same bytes."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import read_container_header
+    from jxl_tpu_torch.codec.decode import decode_bytes
+    from jxl_tpu_torch.codec.tiled import encode_image_striped, read_striped, stripe_widths
+
+    img = _bench_image()
+    seams = np.cumsum(stripe_widths(img.shape[1], 3))[:-1]
+    data = encode_image_striped(img, CodecConfig(distance=distance, effort=7), n_stripes=3, device=dev)
+    sections = read_striped(data)[2]
+    out = decode_bytes(data, device=dev)
+    naive = np.concatenate([decode_bytes(sec, device=dev) for sec in sections], axis=1)
+    epf = [read_container_header(sec).epf for sec in sections]
+    assert all(epf) or distance < 3.0, epf
+    cols = np.arange(img.shape[1])
+    near = (np.abs(cols[:, None] - seams[None, :] + 0.5) <= 8).any(axis=1)
+    differs = (out != naive).any(axis=(0, 2))
+    assert not differs[~near].any()
+    assert bool(differs[near].any()) == all(epf)
+    assert np.abs(out.astype(np.int32) - decode_bytes(data, device="cpu")).max() <= 1
 
 
 @pytest.mark.parametrize("lanes", [1, 256])
@@ -544,7 +695,7 @@ def test_standalone_coder_on_card_matches_cpu(dev, lanes):
     counts = np.zeros((n_ctx, ALPHABET), np.int64)
     np.add.at(counts, (ctx, tok), 1)
     freq, cum = tr.quantize_histograms(counts)
-    e0, d0 = encode_grouped_cuda.launches, decode_grouped_cuda.launches
+    e0, d0 = launch_counts()["rans_encode"], launch_counts()["rans_decode"]
     card = tr.rans_encode(tok, ctx, freq, cum, lanes, device=dev)
     cpu = tr.rans_encode(tok, ctx, freq, cum, lanes, device="cpu")
     assert all(a.device == dev for a in card)
@@ -560,7 +711,7 @@ def test_standalone_coder_on_card_matches_cpu(dev, lanes):
     mbytes, _total = tt.pack_bytes(nbits, mant, tt.byte_capacity(n))
     assert torch.equal(tt.unpack_bytes(nbits, mbytes).cpu(), mant.cpu().long())
     torch.cuda.synchronize()
-    assert (encode_grouped_cuda.launches, decode_grouped_cuda.launches) == (e0, d0)
+    assert (launch_counts()["rans_encode"], launch_counts()["rans_decode"]) == (e0, d0)
 
 
 def _graphics(h: int, w: int, seed: int) -> np.ndarray:
@@ -592,10 +743,10 @@ def test_screen_kernel_matches_plain(dev, h, w, content):
     screened at stride 4)."""
     img = torch.from_numpy(SCREEN_CONTENT[content](h, w, seed=h + w))
     want = screen_count(img)
-    n0 = screen_count.launches
+    n0 = launch_counts()["screen"]
     got = screen_count(img.to(dev))
     assert got == want
-    assert screen_count.launches == n0 + (want[1] > 0)
+    assert launch_counts()["screen"] == n0 + (want[1] > 0)
     if want[1] > 0:
         assert screen_plain(img.to(dev), screen_stride(h, w)) == want[0]
     if content == "flat":
@@ -604,11 +755,11 @@ def test_screen_kernel_matches_plain(dev, h, w, content):
 
 def test_screen_rejects_what_the_kernel_does_not_take(dev):
     img = torch.zeros((64, 96, 3), dtype=torch.uint8, device=dev)
-    n0 = screen_count.launches
+    n0 = launch_counts()["screen"]
     for bad in (img.transpose(0, 1), img.float(), img[..., 0].contiguous(), torch.zeros_like(img[..., :2])):
         with pytest.raises(ValueError):
             screen_count(bad)
-    assert screen_count.launches == n0
+    assert launch_counts()["screen"] == n0
 
 
 def test_encode_launches_the_screen_once(dev):
@@ -619,14 +770,14 @@ def test_encode_launches_the_screen_once(dev):
     from jxl_tpu_torch.codec.container import read_container
     from jxl_tpu_torch.codec.encode import _modular_candidate, encode_image
 
-    n0 = screen_count.launches
+    n0 = launch_counts()["screen"]
     data = encode_image(_card_image(), CodecConfig(distance=1.0, effort=7), device=dev)
-    assert screen_count.launches == n0 + 1
+    assert launch_counts()["screen"] == n0 + 1
     assert not read_container(data).header.lossless
     for img, want in ((_card_image(), False), (_graphics(96, 128, seed=4), True)):
         assert _modular_candidate(img, 1) is want
         assert _modular_candidate(torch.from_numpy(img).to(dev), 1) is want
-    assert screen_count.launches == n0 + 3
+    assert launch_counts()["screen"] == n0 + 3
 
 
 # ---- D1: the 2-D DCT / IDCT kernel (csrc/dct.cu) against float64 and cuBLAS
@@ -680,8 +831,24 @@ def _dct_views(n: int, m: int, dev) -> dict:
     return views
 
 
+def _dct_12mp(n: int, dev) -> torch.Tensor:
+    """The view of a 12 MP frame's three planes (4032x3024) that the
+    encoder's n x n call takes, thousands of CTAs: its 3x378x504 8x8
+    blocks, their 4x4 quadrants, or its 3x47x63 64x64 tiles (the views
+    `probes/kernels.py` times)."""
+    g = torch.Generator().manual_seed(n)
+    planes = (torch.randn(3, 3024, 4032, generator=g) * 64).to(dev)
+    blocks = planes.reshape(3, 378, 8, 504, 8).permute(0, 1, 3, 2, 4)
+    return {
+        8: blocks,
+        4: blocks.reshape(3, 378, 504, 2, 4, 2, 4).permute(0, 1, 2, 3, 5, 4, 6),
+        64: planes[:, :3008].reshape(3, 47, 64, 63, 64).permute(0, 1, 3, 2, 4),
+    }[n]
+
+
 def _dct_cases():
-    return [(n, m, name) for n, m in DCT_SHAPES for name in _dct_view_names(n, m)]
+    small = [(n, m, name) for n, m in DCT_SHAPES for name in _dct_view_names(n, m)]
+    return small + [(n, n, "12mp") for n in (8, 4, 64)]
 
 
 def _dct_f64(x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -714,19 +881,20 @@ def _f32_bound(n: int, m: int, x: torch.Tensor) -> float:
 @pytest.mark.parametrize("inverse", [False, True], ids=["dct", "idct"])
 @pytest.mark.parametrize("n,m,view", _dct_cases(), ids=lambda v: str(v))
 def test_dct_kernel_against_float64(dev, n, m, view, inverse):
-    """D1 on each view the codec passes: within the stated float32 bound of
-    float64 D X D^T, no further from it than twice the cuBLAS path, the
-    same bits from two launches, one launch a call (two above 64), and a
-    contiguous [..., n, m] result."""
-    from jxl_tpu_torch.transforms.dct import dct2d_cuda, idct2d, dct2d
+    """D1 on each view the codec passes, small and at a 12 MP frame's
+    size: within the stated float32 bound of float64 D X D^T, no further
+    from it than twice the cuBLAS path, the same bits from two launches,
+    one launch a call (two above 64), and a contiguous [..., n, m]
+    result."""
+    from jxl_tpu_torch.transforms.dct import dct2d, idct2d
 
-    x = _dct_views(n, m, dev)[view]
+    x = _dct_12mp(n, dev) if view == "12mp" else _dct_views(n, m, dev)[view]
     fn = idct2d if inverse else dct2d
-    n0 = dct2d_cuda.launches
+    n0 = launch_counts()["dct2d"]
     a = fn(x)
     b = fn(x)
     torch.cuda.synchronize()
-    assert dct2d_cuda.launches - n0 == 2 * (2 if max(n, m) > 64 else 1)
+    assert launch_counts()["dct2d"] - n0 == 2 * (2 if max(n, m) > 64 else 1)
     assert a.is_contiguous() and a.shape == x.shape and a.dtype == torch.float32
     assert torch.equal(a, b)
     want = _dct_f64(x, inverse)
@@ -750,45 +918,30 @@ def test_dct_kernel_round_trip(dev, n, m):
 def test_dct_kernel_refuses_what_it_does_not_take(dev):
     """float64 and a ninth dim raise before any launch; an empty view
     launches nothing."""
-    from jxl_tpu_torch.transforms.dct import dct2d, dct2d_cuda
+    from jxl_tpu_torch.transforms.dct import dct2d
 
-    n0 = dct2d_cuda.launches
+    n0 = launch_counts()["dct2d"]
     with pytest.raises(ValueError, match="float32"):
         dct2d(torch.zeros(4, 8, 8, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError, match="dims"):
         dct2d(torch.zeros((1,) * 7 + (8, 8), device=dev))
     assert dct2d(torch.zeros(0, 8, 8, device=dev)).shape == (0, 8, 8)
-    assert dct2d_cuda.launches == n0
+    assert launch_counts()["dct2d"] == n0
 
 
-def test_codec_dct_calls_take_the_kernel(dev, monkeypatch):
+def test_codec_dct_calls_take_the_kernel(dev, dct_calls):
     """An e7 encode and decode of the card image run every dct2d / idct2d
     call through D1: one launch a call, two for a side above 64."""
-    from jxl_tpu_torch.codec import decode as dec_mod
     from jxl_tpu_torch.codec.config import CodecConfig
     from jxl_tpu_torch.codec.decode import decode_bytes
     from jxl_tpu_torch.codec.encode import encode_image
-    from jxl_tpu_torch.strategy import acs as acs_mod
-    from jxl_tpu_torch.transforms.dct import dct2d_cuda
 
-    calls = []
-
-    def counted(fn):
-        def wrapper(x):
-            calls.append((x.is_cuda, x.numel(), max(x.shape[-2:])))
-            return fn(x)
-
-        return wrapper
-
-    for mod, name in ((acs_mod, "dct2d"), (acs_mod, "idct2d"), (dec_mod, "idct2d")):
-        monkeypatch.setattr(mod, name, counted(getattr(mod, name)))
-    n0 = dct2d_cuda.launches
+    n0 = launch_counts()["dct2d"]
     data = encode_image(_card_image(), CodecConfig(distance=1.0, effort=7), device=dev)
     decode_bytes(data, device=dev)
     torch.cuda.synchronize()
-    assert calls and all(cuda for cuda, _, _ in calls)
-    want = sum((2 if side > 64 else 1) for _, numel, side in calls if numel)
-    assert dct2d_cuda.launches - n0 == want
+    assert dct_calls and all(cuda for cuda, _, _ in dct_calls)
+    assert launch_counts()["dct2d"] - n0 == dct_calls.expected_d1()
 
 
 @pytest.mark.parametrize("n,m", [(3, 5), (1, 64), (64, 1), (64, 63), (12, 20), (7, 384)], ids=str)
@@ -797,14 +950,343 @@ def test_dct_kernel_takes_any_side(dev, n, m):
     64) run through D1 too, within the float32 bound of float64. (Not held
     to twice the cuBLAS path's error: at 64 x 1 cuBLAS sums the 64 terms in
     blocks, D1 in order, and reads about half D1's error.)"""
-    from jxl_tpu_torch.transforms.dct import dct2d, dct2d_cuda
+    from jxl_tpu_torch.transforms.dct import dct2d
 
     g = torch.Generator().manual_seed(n * 7 + m)
     x = (torch.randn(max(2, 20_000 // (n * m)), n, m, generator=g) * 64).to(dev)
-    n0 = dct2d_cuda.launches
+    n0 = launch_counts()["dct2d"]
     a = dct2d(x)
     torch.cuda.synchronize()
-    assert dct2d_cuda.launches - n0 == (2 if max(n, m) > 64 else 1)
+    assert launch_counts()["dct2d"] - n0 == (2 if max(n, m) > 64 else 1)
     want = _dct_f64(x, False)
     err = float((a.cpu().double() - want).abs().max())
     assert err <= _f32_bound(n, m, x)
+
+
+def test_chain_probe_cycles_in_range(dev):
+    """The chain probe (csrc/chain_probe.cu) launches twice and reads
+    every chain's cycles per link in (0, 1e4)."""
+    from jxl_tpu_torch.entropy.kernel_bounds import CHAINS, measure_chain_cycles
+
+    c0 = launch_counts()
+    chains = measure_chain_cycles(dev)
+    assert list(chains) == list(CHAINS) and all(0 < v < 1e4 for v in chains.values()), chains
+    assert _since(c0)["chain_probe"] == 2
+
+
+# ---- the paths around the codec on the card: the 71 MP file, the CLI sweep, the mesh, serve, the tools
+
+
+def test_encode_file_above_the_cap_on_card(dev, tmp_path):
+    """An 8192x8704 frame (71 MP, above the single-section cap) through
+    encode_file and decode_bytes_device on the card: a JXTS container of
+    default_n_stripes sections, each within the cap at 1024 lanes; B3 at
+    least once and B1 twice a section, B2 never; above 35 dB; the middle
+    section byte-identical to encode_image of its stripe alone."""
+    from jxl_tpu_torch.bench.headline import synth_kodak
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.container import MAX_PIXELS, read_container_header
+    from jxl_tpu_torch.codec.decode import decode_bytes_device
+    from jxl_tpu_torch.codec.encode import encode_file, encode_image
+    from jxl_tpu_torch.codec.tiled import default_n_stripes, is_striped, read_striped, stripe_widths
+    from jxl_tpu_torch.core.io import write_image
+
+    h, w = 8192, 8704
+    assert h * w > MAX_PIXELS
+    big = synth_kodak(h, w, seed=1)
+    src, dst = str(tmp_path / "big.ppm"), str(tmp_path / "big.jxt")
+    write_image(src, big)
+    k, widths = default_n_stripes(h, w), stripe_widths(w, default_n_stripes(h, w))
+    c0 = launch_counts()
+    size = encode_file(src, dst, CodecConfig(distance=1.0, effort=7), device=dev)
+    with open(dst, "rb") as f:
+        data = f.read()
+    out = decode_bytes_device(data, device=dev)
+    n = _since(c0)
+    sections = read_striped(data)[2]
+    assert is_striped(data) and len(data) == size and len(sections) == k
+    for sec, ws in zip(sections, widths):
+        hd = read_container_header(sec)
+        assert (hd.height, hd.width, hd.lanes, hd.lossless) == (h, ws, 1024, False)
+    assert n["rans_encode"] >= k and n["rans_decode"] == 2 * k and n["rans_decode_batched"] == 0
+    assert tuple(out.shape) == big.shape and out.dtype == torch.uint8
+    err = out.double() - torch.from_numpy(big).to(dev).double()
+    assert 10 * np.log10(255.0**2 / float(torch.mean(err**2))) > 35.0
+    del err, out
+    j = k // 2
+    x0 = sum(widths[:j])
+    stripe = np.ascontiguousarray(big[:, x0 : x0 + widths[j]])
+    assert sections[j] == encode_image(stripe, CodecConfig(distance=1.0, effort=7, modular=False), device=dev)
+
+
+def _image_set(root, names) -> str:
+    """A test-image directory holding test_images/synth/<names> as set `pair`."""
+    import shutil
+
+    os.makedirs(os.path.join(root, "pair"))
+    for nm in names:
+        shutil.copy(os.path.join(REPO, "test_images", "synth", nm), os.path.join(root, "pair", nm))
+    return str(root)
+
+
+def _bench_cli(argv: list):
+    """`python -m jxl_tpu_torch bench` in this process, its lines swallowed."""
+    import contextlib
+    import io
+
+    from jxl_tpu_torch.cli.main import main
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["bench", *argv]) == 0, argv
+    torch.cuda.synchronize()
+
+
+def _csv(path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def test_ab_sweep_cli_on_card(dev, tmp_path):
+    """The thesis's A/B sweep through the CLI on the card (3 images x 4
+    distances, BASELINE against HOMOGENEITY_PARTITIONING at e7): every CSV
+    under its schema's header with a row a point, the summary's MEAN row;
+    B3 at least once a point and B2 for the grid rows; each d=1 container
+    decoded on the card within 1 LSB of the CPU's decode, its battery
+    columns within the bars of the CPU's battery on the card's pixels."""
+    from jxl_tpu_torch.bench.csv_schema import COMPARISON_DIFF_HEADER, COMPARISON_RESULT_HEADER, IMAGE_FILE_DATA_HEADER
+    from jxl_tpu_torch.bench.sweep import TIMINGS_HEADER
+    from jxl_tpu_torch.codec.decode import decode_file
+    from jxl_tpu_torch.core.io import read_png_rgb8
+    from jxl_tpu_torch.metrics.battery import metric_battery
+
+    names = ["synth00.png", "synth01.png", "synth03.png"]
+    dists = (0.5, 1.0, 3.0, 8.0)
+    strategies = ("BASELINE", "HOMOGENEITY_PARTITIONING")
+    images = _image_set(tmp_path / "images", names)
+    c0 = launch_counts()
+    _bench_cli(["--device", str(dev), "--test-image-dir", images, "--benchmark-dir", str(tmp_path / "out"),
+                "--distances", *map(str, dists), "--efforts", "7", "--strategy", strategies[0],
+                "--compare-to", strategies[1]])
+    n = _since(c0)
+    n_pts = len(names) * len(dists)
+    assert n["rans_encode"] >= 2 * n_pts and n["rans_decode_batched"] >= 2, n
+    base = tmp_path / "out" / "0" / "pair"
+    for strat in strategies:
+        for csv_name, header, n_rows in (("results.csv", IMAGE_FILE_DATA_HEADER, len(names)),
+                                         ("comparisons.csv", COMPARISON_RESULT_HEADER, n_pts),
+                                         ("timings.csv", TIMINGS_HEADER, n_pts)):
+            rows = _csv(base / strat / "results" / csv_name)
+            assert rows[0] == header and len(rows) - 1 == n_rows, (strat, csv_name, len(rows))
+    diffs, summary = _csv(base / "comparison_diffs.csv"), _csv(base / "summary.csv")
+    assert diffs[0] == COMPARISON_DIFF_HEADER and len(diffs) - 1 == n_pts
+    assert summary[0] == COMPARISON_DIFF_HEADER and len(summary) == 2 and summary[1][0] == "MEAN"
+    comps = {r[1]: r for r in _csv(base / strategies[0] / "results" / "comparisons.csv")[1:]}
+    keys = ("mse", "psnr", "ssim", "ms_ssim", "butteraugli", "butteraugli_pnorm", "ssimulacra2")
+    for nm in names:
+        row = comps[f"{os.path.splitext(nm)[0]}-1.0-7.jxt"]
+        jxt = str(base / strategies[0] / "output" / row[1])
+        card = decode_file(jxt, device=dev)
+        assert np.abs(card.astype(np.int32) - decode_file(jxt, device="cpu")).max() <= 1
+        orig = read_png_rgb8(os.path.join(REPO, "test_images", "synth", nm))
+        _assert_within_bars(dict(zip(keys, map(float, row[10:17]))), metric_battery(orig, card, device="cpu"))
+
+
+def test_legacy_sweep_cli_on_card(dev, tmp_path):
+    """The legacy outputs of the CLI sweep on the card (synth02, d in
+    {0, 1, 3} x e5, e7, e9, --decompress --compare-images): a
+    decompressed row, PNG and diff image a point, each PNG read back equal
+    to the card's decode of its container; d = 0 exact at every effort."""
+    from jxl_tpu_torch.bench.sweep import DECOMPRESSION_HEADER
+    from jxl_tpu_torch.codec.decode import decode_file
+    from jxl_tpu_torch.core.io import read_png_rgb8
+
+    images = _image_set(tmp_path / "images", ["synth02.png"])
+    dists, efforts = (0.0, 1.0, 3.0), (5, 7, 9)
+    _bench_cli(["--device", str(dev), "--test-image-dir", images, "--benchmark-dir", str(tmp_path / "out"),
+                "--distances", *map(str, dists), "--efforts", *map(str, efforts), "--decompress", "--compare-images"])
+    base = tmp_path / "out" / "0" / "pair" / "BASELINE"
+    comps = _csv(base / "results" / "comparisons.csv")[1:]
+    dec = _csv(base / "results" / "decompressed.csv")
+    n_pts = len(dists) * len(efforts)
+    assert len(comps) == n_pts and dec[0] == DECOMPRESSION_HEADER and len(dec) - 1 == n_pts
+    assert len(os.listdir(base / "diffs")) == n_pts
+    orig = read_png_rgb8(os.path.join(REPO, "test_images", "synth", "synth02.png"))
+    for r in comps:
+        px = decode_file(str(base / "output" / r[1]), device=dev)
+        np.testing.assert_array_equal(read_png_rgb8(str(base / "decompressed" / (r[1][: -len(".jxt")] + ".png"))), px)
+        if float(r[2]) == 0.0:
+            assert r[11] == "inf" and float(r[10]) == 0.0, r
+            np.testing.assert_array_equal(px, orig)
+
+
+@pytest.mark.parametrize("path", ["grid", "epf", "bench"])
+def test_mesh_on_card_slots(dev, tmp_path, path):
+    """The mesh paths over slots of the one card, each against its
+    sequential form: encode_grid_sharded (data=2) byte-identical to
+    encode_image_grid under modular=False, B3 at least once a point;
+    sharded_epf (space=4) equal to epf_apply on the bench image's d=3
+    planes; `bench --mesh data=2` writing the single-device run's rows and
+    containers. (The striped form: test_striped_container_on_card_matches_cpu.)"""
+    from dataclasses import replace
+
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.core.io import read_png_rgb8
+    from jxl_tpu_torch.distributed.mesh import make_mesh
+
+    synth = os.path.join(REPO, "test_images", "synth")
+    if path == "grid":
+        from jxl_tpu_torch.codec.encode import encode_image_grid
+        from jxl_tpu_torch.distributed.sharded import encode_grid_sharded
+
+        names = ["synth00.png", "synth01.png", "synth02.png", "synth03.png"]
+        imgs = [read_png_rgb8(os.path.join(synth, nm)) for nm in names]
+        dists, cfg = (0.5, 1.0, 3.0, 8.0), CodecConfig(effort=7)
+        c0 = launch_counts()
+        rows = encode_grid_sharded(imgs, cfg, dists, mesh=make_mesh([dev] * 2, data=2), orig_names=names)
+        assert _since(c0)["rans_encode"] >= len(imgs) * len(dists)
+        for img, nm, row in zip(imgs, names, rows):
+            assert row == encode_image_grid(img, replace(cfg, modular=False), dists, nm, device=dev), nm
+    elif path == "epf":
+        from jxl_tpu_torch.codec.container import read_container
+        from jxl_tpu_torch.codec.decode import decode_stream_planes
+        from jxl_tpu_torch.codec.encode import encode_image
+        from jxl_tpu_torch.distributed.sharded import sharded_epf
+        from jxl_tpu_torch.transforms.epf import epf_apply
+
+        data = encode_image(_bench_image(), CodecConfig(distance=3.0, effort=7), device=dev)
+        planes, eff_mul = decode_stream_planes(read_container(data), device=dev)
+        assert planes.is_cuda
+        got = sharded_epf(planes, eff_mul, 3.0, make_mesh([dev] * 4, space=4))
+        assert torch.equal(got, epf_apply(planes, eff_mul, 3.0))
+    else:
+        from jxl_tpu_torch.codec.encode import _modular_candidate
+
+        names = sorted(os.listdir(synth))
+        pick = [nm for nm in names if not _modular_candidate(read_png_rgb8(os.path.join(synth, nm)), 1)][:2]
+        images = _image_set(tmp_path / "images", pick)
+        argv = ["--device", str(dev), "--test-image-dir", images, "--distances", "0.5", "1", "3", "--efforts", "7"]
+        _bench_cli(argv + ["--benchmark-dir", str(tmp_path / "mesh"), "--mesh", "data=2"])
+        _bench_cli(argv + ["--benchmark-dir", str(tmp_path / "single")])
+        out = [tmp_path / run / "0" / "pair" / "BASELINE" for run in ("mesh", "single")]
+        a, b = (_csv(o / "results" / "comparisons.csv") for o in out)
+        assert a[0] == b[0] and sorted(a[1:]) == sorted(b[1:]) and len(a) == 1 + 3 * len(pick)
+        files = sorted(os.listdir(out[1] / "output"))
+        assert files == sorted(os.listdir(out[0] / "output")) and len(files) == 3 * len(pick)
+        for f in files:
+            assert (out[0] / "output" / f).read_bytes() == (out[1] / "output" / f).read_bytes(), f
+
+
+def test_serve_on_card(dev, tmp_path, monkeypatch):
+    """`serve --device cuda:0` with its warm-up: every kernel library of
+    the registry mapped into the server before it prints ready; a ping
+    names the card; `encode` and `decode` forwarded to it write the files
+    a local run of the CLI on the card writes; shutdown removes the
+    socket."""
+    import subprocess
+    import sys
+
+    from jxl_tpu_torch.cli.main import main
+    from jxl_tpu_torch.cli.server import try_forward
+    from jxl_tpu_torch.core.io import write_image
+    from jxl_tpu_torch.cuda_build import KERNEL_SOURCES
+
+    sock = str(tmp_path / "jxl.sock")
+    src = str(tmp_path / "bench.png")
+    write_image(src, _bench_image())
+    files = {tag: [str(tmp_path / f"{tag}.{ext}") for ext in ("jxt", "png")] for tag in ("fwd", "local")}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JXL_TPU_")}
+    proc = subprocess.Popen([sys.executable, "-m", "jxl_tpu_torch", "serve", "--device", str(dev), "--socket", sock],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        assert proc.stdout.readline().startswith(f"[serve] ready on {sock} (device: {dev})")
+        with open(f"/proc/{proc.pid}/maps") as f:
+            mapped = {os.path.basename(line.split()[-1]).split("-")[0] for line in f if line.rstrip().endswith(".so")}
+        assert set(KERNEL_SOURCES) <= mapped, sorted(set(KERNEL_SOURCES) - mapped)
+        assert try_forward({"cmd": "ping"}, socket_path=sock) == {"ok": True, "msg": "pong", "device": str(dev)}
+        jxt, png = files["fwd"]
+        for req in ({"cmd": "encode", "input": src, "output": jxt, "distance": 1.0, "effort": 7},
+                    {"cmd": "decode", "input": jxt, "output": png}):
+            assert try_forward(req, socket_path=sock, device=str(dev))["ok"], req
+        assert try_forward({"cmd": "shutdown"}, socket_path=sock)["ok"]
+        assert proc.wait(timeout=60) == 0 and not os.path.exists(sock)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    monkeypatch.setenv("JXL_TPU_TORCH_NO_SERVER", "1")
+    jxt, png = files["local"]
+    assert main(["encode", src, jxt, "--device", str(dev), "--distance", "1", "--effort", "7"]) == 0
+    assert main(["decode", jxt, png, "--device", str(dev)]) == 0
+    for a, b in zip(files["fwd"], files["local"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), (a, b)
+
+
+TOOLS = ["profile_stages", "batch_scaling", "rd_point", "bit_breakdown", "epf_ab", "profile_startup"]
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_on_card(dev, tmp_path, tool):
+    """Each measurement tool of jxl_tpu_torch/tools on the card, on the
+    bench image: its container equal to encode_image's where it writes
+    one, its rows positive and finite, rd_point's d=1 point on the
+    quality anchor, bit_breakdown's sections adding up to the payload,
+    profile_startup naming the card and loading the kernels."""
+    import contextlib
+    import io
+    import json
+    import subprocess
+    import sys
+
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.encode import encode_image
+
+    img = _bench_image()
+    data = encode_image(img, CodecConfig(distance=1.0, effort=7), device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if tool == "profile_stages":
+            from jxl_tpu_torch.tools import profile_stages
+
+            res = profile_stages.profile(img, dev, reps=2)
+            assert res["bytes"] == data and list(res["stages"]) == list(profile_stages.STAGES)
+            assert all(t["ms"] > 0 and t["busy_ms"] is not None for t in res["stages"].values())
+            assert sum(t["kernels"] for t in res["stages"].values()) > 0
+        elif tool == "batch_scaling":
+            from jxl_tpu_torch.tools import batch_scaling
+
+            rows = batch_scaling.scaling_rows(img, dev, batches=(1, 2), iters=2)
+            assert [r[0] for r in rows] == [1, 2] and all(v > 0 for r in rows for v in r[1:])
+        elif tool == "rd_point":
+            from jxl_tpu_torch.tools import rd_point
+
+            (_d, bpp, psnr), _ = rd_point.rd_points({"bench": img}, [1.0, 3.0], 7, dev)["bench"]
+            assert abs(psnr - ANCHOR_PSNR_DB) <= PSNR_TOL_DB and abs(bpp - ANCHOR_BPP) <= BPP_TOL_REL * ANCHOR_BPP
+        elif tool == "bit_breakdown":
+            from jxl_tpu_torch.tools import bit_breakdown
+
+            bd = bit_breakdown.breakdown(img, 1.0, 7, dev)
+            sec, pay = bit_breakdown.payload_bits(bd)
+            assert bd["data"] == data and abs(sec / pay - 1) <= 1e-3
+        elif tool == "epf_ab":
+            from jxl_tpu_torch.tools import epf_ab
+
+            rows = epf_ab.epf_rows({"bench": img}, [1.0, 4.0], dev)
+            assert len(rows) == 2 and all(r[2] > 0 and np.isfinite(r[3]) and np.isfinite(r[4]) for r in rows)
+    if tool == "profile_startup":
+        from jxl_tpu_torch.bench.headline import smi_line
+        from jxl_tpu_torch.core.io import write_image
+
+        png, out = str(tmp_path / "bench.png"), str(tmp_path / "bench.jxt")
+        write_image(png, img)
+        proc = subprocess.run(
+            [sys.executable, "-m", "jxl_tpu_torch.tools.profile_startup", "--encode", png, "--device", str(dev),
+             "--out", out], cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        marks = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert marks["device"] == smi_line(dev) and all(v > 0 for v in marks["phase_s"].values())
+        assert "kernel_build_or_load" in marks["phase_s"]
+        with open(out, "rb") as f:
+            assert f.read() == data

@@ -34,9 +34,9 @@ from jxl_tpu_torch.codec.decode import decode_bytes
 from jxl_tpu_torch.codec.encode import encode_image, encode_image_grid
 from jxl_tpu_torch.codec.tiled import encode_image_striped, encode_image_striped_sharded
 from jxl_tpu_torch.core.io import write_image
+from jxl_tpu_torch.cuda_build import launch_counts
 from jxl_tpu_torch.distributed.mesh import Mesh, init_multihost, make_mesh
 from jxl_tpu_torch.distributed.sharded import encode_batch_sharded, encode_grid_sharded, sharded_epf
-from jxl_tpu_torch.entropy.cuda_rans_enc import encode_grouped_cuda
 from jxl_tpu_torch.transforms.epf import epf_apply
 
 from tests.conftest import make_test_image
@@ -79,9 +79,9 @@ def test_sharded_encode_bit_exact_containers():
     batch, dists = _batch()
     cfg = CodecConfig(distance=1.0, effort=7)
     mesh = make_mesh(TWO_DEVICES * 4, space=2)  # data=4 rows over two distinct devices
-    n0 = encode_grouped_cuda.launches
+    n0 = launch_counts()["rans_encode"]
     got = encode_batch_sharded(list(batch), cfg, distances=dists, mesh=mesh, orig_names=[f"i{i}" for i in range(6)])
-    assert encode_grouped_cuda.launches == n0  # CPU tensors: the plain version, no launch counted
+    assert launch_counts()["rans_encode"] == n0  # CPU tensors: the plain version, no launch counted
     assert len(got) == 6
     for i in range(6):
         want = encode_image(batch[i], replace(cfg, distance=dists[i], modular=False), f"i{i}", device="cpu")

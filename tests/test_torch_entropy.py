@@ -4,7 +4,7 @@ Bit-exact on every output. The Pallas kernels run in interpret mode on the
 CPU (as tests/test_pallas_enc.py runs them); the port's kernel wrappers
 take CPU tensors, so they run their plain torch versions here. The CUDA
 kernels themselves are compared with the same plain versions on the card
-by chip_smoke.py.
+by tests/test_torch_cuda.py.
 """
 
 import numpy as np

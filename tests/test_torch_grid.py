@@ -36,6 +36,7 @@ from jxl_tpu_torch.codec import decode as td
 from jxl_tpu_torch.codec import encode as te
 from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import read_container
+from jxl_tpu_torch.cuda_build import launch_counts
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda
 from jxl_tpu_torch.entropy.cuda_rans_enc import enc_caps, encode_grouped_plain
 from jxl_tpu_torch.entropy.grouped import decode_grouped, decode_grouped_batched
@@ -95,9 +96,9 @@ def test_batched_scan_matches_per_stream(batch3):
     states = t64(np.stack(b["states"]))
     rows = torch.stack(b["rows"], dim=1)
     ptr0 = torch.zeros((2, B * G), dtype=torch.int32)
-    n0 = decode_grouped_batched_cuda.launches
+    n0 = launch_counts()["rans_decode_batched"]
     got = _two_phase(decode_grouped_batched_cuda, words, mants, states, rows, ptr0, T, t_a)
-    assert decode_grouped_batched_cuda.launches == n0  # CPU tensors: plain version
+    assert launch_counts()["rans_decode_batched"] == n0  # CPU tensors: plain version
     plain = _two_phase(decode_grouped_batched, words, mants, states, rows, ptr0, T, t_a)
     for x, y in zip(got, plain):
         assert torch.equal(x, y)
@@ -166,9 +167,9 @@ def test_grid_decode_of_reference_row(row):
     epf = [s.header.epf for s in streams]
     print(f"EPF flags across the row: {epf}")
     assert len(set(epf)) == 2, "the row should mix EPF decisions"
-    n0 = decode_grouped_batched_cuda.launches
+    n0 = launch_counts()["rans_decode_batched"]
     values = td.decode_values_grid(streams, "cpu")
-    assert decode_grouped_batched_cuda.launches == n0
+    assert launch_counts()["rans_decode_batched"] == n0
     for i, d in enumerate(jax_datas):
         np.testing.assert_array_equal(np_(values[i]).astype(np.int64), jax_values(d).astype(np.int64))
     got = td.decode_bytes_grid_stacked(jax_datas, device="cpu")

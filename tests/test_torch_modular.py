@@ -37,8 +37,8 @@ from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import read_container
 from jxl_tpu_torch.codec.layout import lossless_layout
 from jxl_tpu_torch.codec.screen import screen_count
+from jxl_tpu_torch.cuda_build import launch_counts
 from jxl_tpu_torch.entropy import cluster as tcl
-from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
 
 from tests.conftest import make_test_image
 from tests.test_modular import synth_graphics
@@ -335,12 +335,12 @@ def test_screen_count_matches_numpy_rule(monkeypatch, case):
         assert want == SCREEN_WANT[case]
     if case.startswith("stride4"):
         assert want[1] == 1024 * 1023
-    n0 = screen_count.launches
+    n0 = launch_counts()["screen"]
     count, n = screen_count(torch.from_numpy(img))
     assert (count, n, n > 0 and count / n >= 0.12) == want
     assert te._modular_candidate(img, 1) == want[2]
     assert te._modular_candidate(torch.from_numpy(img), 1) == want[2]
-    assert screen_count.launches == n0
+    assert launch_counts()["screen"] == n0
 
 
 @pytest.mark.parametrize("case", ["int64", "float64", "gray_2d", "rgba"])
@@ -388,10 +388,10 @@ def test_modular_row_batched_decode():
     )()
     streams = [read_container(d) for d in datas]
     assert all(s.header.lossless and not s.acs_extra for s in streams)
-    n1, n2 = decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches
+    n1, n2 = launch_counts()["rans_decode"], launch_counts()["rans_decode_batched"]
     values = td.decode_values_grid(streams, "cpu")
     out = td.decode_bytes_grid_stacked(datas, device="cpu")
-    assert (decode_grouped_cuda.launches, decode_grouped_batched_cuda.launches) == (n1, n2)
+    assert (launch_counts()["rans_decode"], launch_counts()["rans_decode_batched"]) == (n1, n2)
     assert out.shape == (4,) + img.shape
     for i, (s, d) in enumerate(zip(streams, datas)):
         assert torch.equal(values[i], td.decode_values(s, "cpu"))

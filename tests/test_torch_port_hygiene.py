@@ -4,6 +4,7 @@ the reference's, no entry point is left raising NotImplementedError, and
 every entry point takes an explicit device."""
 
 import os
+import pathlib
 import pkgutil
 import subprocess
 import sys
@@ -130,17 +131,40 @@ def test_tool_on_cuda_without_a_card_raises(name, monkeypatch):
         mod.main([*TOOL_ARGS.get(name, []), "--device", "cuda:0"])
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py drives the port on the card, where jax is absent: no
-    import of jax or jxl_tpu anywhere in it, top level or inside a function."""
+PROBES = sorted(p.name for p in pathlib.Path(REPO, "probes").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_imports_no_jax(name):
+    """The probes drive the port on the card, where jax is absent: no
+    import of jax or jxl_tpu anywhere in one, top level or inside a
+    function."""
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(os.path.join(REPO, "probes", name)) as f:
         tree = ast.parse(f.read())
     mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
-    assert {"jxl_tpu_torch.codec.encode", "jxl_tpu_torch.entropy"} <= mods
+    assert [m for m in mods if m.startswith("jxl_tpu_torch") or m.startswith("perfbench")]
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "jxl_tpu")]
+
+
+def test_kernel_launches_go_through_the_seam():
+    """Only jxl_tpu_torch/cuda_build.py declares a CUDA entry's argument
+    types or hands a kernel the current stream (native/bindings.py binds
+    the host C library, no kernel); the wrappers, tools and probes launch
+    through `cuda_build.launch` and read launch counts from
+    `cuda_build.launch_counts`."""
+    seam = pathlib.Path(REPO, "jxl_tpu_torch", "cuda_build.py")
+    native = pathlib.Path(REPO, "jxl_tpu_torch", "native", "bindings.py")
+    files = [*pathlib.Path(REPO, "jxl_tpu_torch").rglob("*.py"), *pathlib.Path(REPO, "probes").glob("*.py")]
+    bad = []
+    for path in files:
+        text = path.read_text()
+        for word in ("argtypes", ".cuda_stream", ".launches"):
+            if word in text and path != seam and not (word == "argtypes" and path == native):
+                bad.append((str(path.relative_to(REPO)), word))
+    assert seam in files and not bad, bad
 
 
 def test_bench_torch_imports_no_jax():
@@ -170,12 +194,12 @@ def test_bench_torch_imports_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    ["chip_smoke.py", "bench_torch.py", os.path.join("probes", "rans_kernels.py"), os.path.join("probes", "mesh_devices.py"),
+    ["bench_torch.py", os.path.join("probes", "kernels.py"), os.path.join("probes", "mesh_devices.py"),
      os.path.join("probes", "stage_table.py")],
 )
 def test_card_script_names_resolve(path):
     """The scripts that run only on the card import here, and every name they
-    take from the port or from chip_smoke.py exists: each `from M import x`
+    take from the port exists: each `from M import x`
     anywhere in the file (inside functions too), and each `alias.x` for a
     module imported as `alias`. A rename then fails here, not on the card."""
     import ast
@@ -189,7 +213,7 @@ def test_card_script_names_resolve(path):
         tree = ast.parse(f.read())
 
     def ours(name):
-        return name.split(".")[0] in ("jxl_tpu_torch", "chip_smoke")
+        return name.split(".")[0] == "jxl_tpu_torch"
 
     def has(mod, name):
         if hasattr(mod, name):
