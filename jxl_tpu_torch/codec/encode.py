@@ -21,7 +21,9 @@ Modular (d = 0 lossless, modular-lossy, palette; `codec/lossless.py`):
 All per-pixel and per-symbol work runs as torch ops on the given device;
 the rANS encode is the CUDA kernel of `entropy/cuda_rans_enc.py` on a GPU
 for every family (a mantissa bucket that overflows, as d = 0 streams of
-photographic content do, relaunches the kernel with grown caps). Every
+photographic content do, relaunches the kernel with grown caps), and the
+two context histograms (the nnz-conditioning counts and the entropy
+stage's tables) are kernel H1 of `codec/histogram.py` there. Every
 entry point takes an explicit `device`; `resolve_device` turns TF32 off
 there on CUDA (the DCTs and the k-means cost matrix stay full float32).
 The kernel's buckets go straight to container bytes: one device-to-host
@@ -61,6 +63,8 @@ import torch.nn.functional as F
 
 from jxl_tpu_torch.codec.config import CodecConfig
 from jxl_tpu_torch.codec.container import MAX_PIXELS, JxtHeader, JxtStream, write_container
+from jxl_tpu_torch.codec.histogram import ac_counts4 as _ac_counts4
+from jxl_tpu_torch.codec.histogram import histogram_stepped as _histogram_stepped
 from jxl_tpu_torch.codec.layout import CTX_AC_BASE, NNZ_EDGES, NNZ_Q, lossless_layout, padded_layout, token_layout
 from jxl_tpu_torch.codec.lossless import MOD_COEFS, _mod_coefs, ll_step_ctx, lossless_tokens
 from jxl_tpu_torch.codec.screen import screen_count
@@ -229,24 +233,6 @@ def dc_predict_residual(dcq: torch.Tensor) -> torch.Tensor:
     n = F.pad(dcq, (0, 0, 1, 0))[:, :-1, :]
     nw = F.pad(dcq, (1, 0, 1, 0))[:, :-1, :-1]
     return dcq - w - n + nw
-
-
-def _ac_counts4(ac_tok: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
-    """[3, 63, NNZ_Q, A] AC token counts by (channel, position, bucket)."""
-    nb = ac_tok.shape[1]
-    dev = ac_tok.device
-    c = torch.arange(3, device=dev)[:, None, None]
-    p = torch.arange(63, device=dev)[None, None, :]
-    idx = ((c * 63 + p) * NNZ_Q + qb.to(torch.int64)[:, :, None]) * ALPHABET + ac_tok.to(torch.int64)
-    counts = torch.bincount(idx.reshape(-1), minlength=3 * 63 * NNZ_Q * ALPHABET)
-    return counts.reshape(3, 63, NNZ_Q, ALPHABET)
-
-
-def _histogram_stepped(tokp: torch.Tensor, step_ctx: torch.Tensor, lanes: int, n_ctx: int) -> torch.Tensor:
-    """Exact per-context histogram [n_ctx, A] of a padded stream whose
-    context is constant within each K-token step (an integer bincount)."""
-    idx = torch.repeat_interleave(step_ctx.to(torch.int64), lanes) * ALPHABET + tokp.to(torch.int64)
-    return torch.bincount(idx, minlength=n_ctx * ALPHABET).reshape(n_ctx, ALPHABET)
 
 
 def ac_step_ctx(lay, q_sorted: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,7 @@ ENTRIES = {
     "rans_encode": Entry("rans_enc", "jxl_rans_encode", (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P)),
     "screen": Entry("screen", "jxl_screen_count", (_P, _I, _I, _I, _P)),
     "dct2d": Entry("dct", "jxl_dct2d", (_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong))),
+    "hist": Entry("hist", "jxl_hist", (_P, _P, _I, _I, _I, _I, _P)),
     "chain_probe": Entry("chain_probe", "jxl_chain_probe", (_I, ctypes.c_uint32, _P, _P), probe=True),
 }
 KERNEL_SOURCES = tuple(dict.fromkeys(e.source for e in ENTRIES.values() if not e.probe))

@@ -30,6 +30,13 @@ after the window. Lines, in order:
 - `[D1]` the DCT, forward and inverse, at the 12 MP views of the encoder's
   8x8, 4x4 and 64x64 calls, beside its bound (one read and one write, or
   its FLOPs, the larger) and `torch.matmul` on the same view;
+- `[H1]` the context histograms, both forms (the entropy stage's stepped
+  tables and the front end's AC counts), on the inputs of one d=1 e7
+  encode of a 4032x3024 photo and of the bench image: the launch alone and
+  the wrapper with its zero fill, beside the bound of one read of the
+  tokens and keys and one write of the counts, `torch.bincount` on the
+  prebuilt index (ATen's kernel with its two read-backs) and the plain
+  version whole (index build and bincount), the parent's code;
 - `[launches]` each kernel entry's launches in one main-path round trip
   of the bench image at d=1 e7 and in one 32-point grid row, read as
   differences of `cuda_build.launch_counts()`;
@@ -407,6 +414,84 @@ def d1_times(dev) -> dict:
     return out
 
 
+def h1_inputs(dev, img) -> dict:
+    """The arguments of the encoder's two histogram calls in one d=1 e7
+    encode of `img`, captured at the names `codec.encode` calls."""
+    from jxl_tpu_torch.codec import encode
+    from jxl_tpu_torch.codec.config import CodecConfig
+
+    names = {"stepped": "_histogram_stepped", "ac": "_ac_counts4"}
+    real = {form: getattr(encode, name) for form, name in names.items()}
+    seen = {}
+
+    def capture(form):
+        def run(*args):
+            seen[form] = args
+            return real[form](*args)
+
+        return run
+
+    for form, name in names.items():
+        setattr(encode, name, capture(form))
+    try:
+        encode.encode_image(img, CodecConfig(distance=1.0, effort=7), device=dev)
+    finally:
+        for form, name in names.items():
+            setattr(encode, name, real[form])
+    return seen
+
+
+def h1_times(dev) -> dict:
+    """H1, both forms, on the encoder's own inputs at 12 MP and at the bench
+    image's size: the launch alone and the wrapper with its fill, beside
+    its byte bound, torch.bincount on the prebuilt index and the plain
+    version whole, each checked equal to the kernel's counts first."""
+    from jxl_tpu_torch.bench.headline import PEAK_BW, synth_kodak
+    from jxl_tpu_torch.codec import histogram
+    from jxl_tpu_torch.cuda_build import launch
+    from jxl_tpu_torch.entropy.tokens import ALPHABET
+    from jxl_tpu_torch.tools.make_test_images import synth_photo
+
+    forms = {
+        "stepped": (histogram.histogram_stepped_cuda, histogram.histogram_stepped_plain),
+        "ac": (histogram.ac_counts4_cuda, histogram.ac_counts4_plain),
+    }
+    out = {}
+    for size, img in (("4032x3024", synth_photo(3024, 4032, 0)), ("512x768", synth_kodak())):
+        seen = h1_inputs(dev, img)
+        for form, (kernel, plain) in forms.items():
+            args = seen[form]
+            tok, key = args[0], args[1]
+            counts = kernel(*args)
+            if not torch.equal(counts, plain(*args)):
+                raise AssertionError(f"H1 {form} {size}: the kernel's counts differ from torch.bincount's")
+            if form == "stepped":
+                lanes, n_rows, nb = args[2], args[3], 0
+                idx = histogram.stepped_index(*args[:3])
+                shape = f"T {key.numel()} x lanes {lanes}, {n_rows} contexts"
+            else:
+                lanes, n_rows, nb = histogram.AC_POS, counts.numel() // ALPHABET, tok.shape[1]
+                idx = histogram.ac_index(tok, key)
+                shape = f"[3, {nb}, 63] tokens, {n_rows} rows"
+            acc = torch.zeros_like(counts)
+            ms = cuda_ms(lambda: launch("hist", dev, tok.data_ptr(), key.data_ptr(), key.numel(), lanes, n_rows, nb,
+                                        acc.data_ptr()))
+            whole_ms = cuda_ms(lambda: kernel(*args))
+            lib_ms = cuda_ms(lambda: torch.bincount(idx, minlength=counts.numel()))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            nbytes = 4 * tok.numel() + 8 * key.numel() + 8 * counts.numel()
+            bound_ms = 1e3 * nbytes / PEAK_BW
+            smi = smi_sample()
+            print(f"[H1 {form} {size}] {shape} ({tok.numel() / 1e6:.2f} M tokens): kernel {1e3 * ms:.1f} us, with its "
+                  f"fill {1e3 * whole_ms:.1f} us; bound {1e3 * bound_ms:.1f} us ({nbytes / 1e6:.2f} MB, "
+                  f"{100 * bound_ms / ms:.1f}%); torch.bincount on the index {lib_ms:.3f} ms, the plain version whole "
+                  f"{plain_ms:.3f} ms (SM {smi['mhz']:.0f} MHz)", flush=True)
+            out[f"{form} {size}"] = dict(ms=ms, whole_ms=whole_ms, bound_ms=bound_ms, library_ms=lib_ms,
+                                         plain_ms=plain_ms)
+            del idx
+    return out
+
+
 def main_path_launches(dev, img) -> dict:
     """Each kernel entry's launches in one main-path round trip of the
     bench image (encode_image and decode_bytes at d=1 e7) and in one grid
@@ -513,6 +598,7 @@ def main() -> int:
     b2, calls = b2_times(dev, img, chains)
     s1 = s1_times(dev)
     d1 = d1_times(dev)
+    h1 = h1_times(dev)
     launches = main_path_launches(dev, img)
     step_clock(libs["clocked"], ss[0])
 
@@ -526,6 +612,7 @@ def main() -> int:
         "rans_encode": {**keep(bench["encode"]), "lanes1024": keep(stripe["encode"])},
         "screen": s1,
         "dct2d": d1,
+        "hist": h1,
     }}), flush=True)
     if not args.parent_csrc:
         return 0

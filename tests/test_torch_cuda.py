@@ -398,7 +398,8 @@ def test_codec_on_card_matches_cpu(dev, case, dct_calls):
     """encode_image and decode_bytes on the card: the value stream equal to
     the CPU's decode of the same bytes, pixels within 1 LSB of it, and D1
     launched exactly for the codec's DCT calls. The main path (d=1 e7)
-    launches B3 once, B1 twice, the screen once and B2 never, and the bench
+    launches B3 once, B1 twice, the screen once, H1 twice and B2 never
+    (H1 three times at e8-e9: the front end runs twice), and the bench
     image meets its quality anchor; d = 0 round-trips exactly, synth02 on
     the palette arm, the bench image on the plain one."""
     from jxl_tpu_torch.codec.config import CodecConfig
@@ -419,7 +420,9 @@ def test_codec_on_card_matches_cpu(dev, case, dct_calls):
     assert np.abs(a - b).max() <= 1
     assert n["rans_encode"] >= 1 and n["rans_decode"] >= 2 and n["rans_decode_batched"] == 0
     if (distance, effort) == (1.0, 7):
-        assert (n["rans_encode"], n["rans_decode"], n["screen"]) == (1, 2, 1) and n["dct2d"] >= 1
+        assert (n["rans_encode"], n["rans_decode"], n["screen"], n["hist"]) == (1, 2, 1, 2) and n["dct2d"] >= 1
+    if distance > 0 and effort >= 8:
+        assert n["hist"] == 3  # the front end twice, the stream's tables once
     if case == "bench d=1 e7":
         mse = np.mean((a - img.astype(np.int32)) ** 2)
         assert abs(10 * np.log10(255.0**2 / mse) - ANCHOR_PSNR_DB) <= PSNR_TOL_DB
@@ -778,6 +781,201 @@ def test_encode_launches_the_screen_once(dev):
         assert _modular_candidate(img, 1) is want
         assert _modular_candidate(torch.from_numpy(img).to(dev), 1) is want
     assert launch_counts()["screen"] == n0 + 3
+
+
+# ---- H1: the encoder's context histograms (csrc/hist.cu) against torch.bincount on the card
+
+
+def _h1_checkers(monkeypatch):
+    """encode's two histogram names replaced by checkers: each call runs H1
+    (one launch) and the plain torch.bincount on the same card tensors,
+    holds them equal element for element in int64, and returns H1's
+    counts. Returns the list of (form, tokens) checked."""
+    from jxl_tpu_torch.codec import encode
+    from jxl_tpu_torch.codec.histogram import ac_counts4, ac_counts4_plain, histogram_stepped, histogram_stepped_plain
+
+    seen = []
+
+    def checked(form, kernel, plain):
+        def run(tok, *args):
+            n0 = launch_counts()["hist"]
+            got = kernel(tok, *args)
+            assert launch_counts()["hist"] == n0 + 1
+            want = plain(tok, *args)
+            assert got.dtype == want.dtype == torch.int64 and got.shape == want.shape
+            assert torch.equal(got, want), form
+            seen.append((form, tok.numel()))
+            return got
+
+        return run
+
+    monkeypatch.setattr(encode, "_histogram_stepped", checked("stepped", histogram_stepped, histogram_stepped_plain))
+    monkeypatch.setattr(encode, "_ac_counts4", checked("ac", ac_counts4, ac_counts4_plain))
+    return seen
+
+
+def _photo_12mp():
+    return _photo(3024, 4032, seed=5)
+
+
+H1_ENCODES = {  # image, distance, effort, AC-form calls
+    "kodak d=1 e7": (_bench_image, 1.0, 7, 1),
+    "kodak d=1 e9": (_bench_image, 1.0, 9, 2),
+    "12mp d=1 e7": (_photo_12mp, 1.0, 7, 1),
+    "12mp d=1 e9": (_photo_12mp, 1.0, 9, 2),
+    "kodak d=0 modular": (_bench_image, 0.0, 7, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(H1_ENCODES))
+def test_h1_matches_bincount_on_encoder_streams(dev, monkeypatch, case):
+    """H1 on the encoder's own inputs (the `_step_ctx_v8` stream and the AC
+    tokens of a Kodak-size and a 12 MP frame at d=1 e7 and e9, front end
+    twice there; the modular `ll_step_ctx` stream at d = 0) equals
+    torch.bincount run on the card, element for element."""
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.encode import encode_image
+
+    make, distance, effort, n_ac = H1_ENCODES[case]
+    seen = _h1_checkers(monkeypatch)
+    encode_image(make(), CodecConfig(distance=distance, effort=effort), device=dev)
+    forms = [f for f, _n in seen]
+    assert forms.count("ac") == n_ac and forms.count("stepped") >= 1
+    if case.startswith("12mp"):
+        assert min(n for _f, n in seen) > 30_000_000  # tens of millions of tokens a call
+
+
+def _steps_per_cta(lanes: int) -> int:
+    """The stepped form's steps a CTA (csrc/hist.cu: S_TOKENS / lanes)."""
+    return 32768 // lanes
+
+
+def _adversarial_stream(kind: str, lanes: int, dev):
+    """(tokp, step_ctx, n_ctx) of one adversarial stream on `dev`."""
+    from jxl_tpu_torch.entropy.tokens import ALPHABET
+
+    rng = np.random.default_rng(lanes)
+    T = 3 * _steps_per_cta(lanes) + 7  # not a multiple of a CTA's step range
+    if kind == "zeros_one_ctx":
+        n_ctx, tok, ctx = 5, np.zeros((T, lanes)), np.full(T, 3)
+    elif kind == "all_max":
+        n_ctx, tok, ctx = 765, np.full((T, lanes), ALPHABET - 1), rng.integers(0, 765, T)
+    elif kind == "ctx_every_step":
+        n_ctx, tok, ctx = 13, rng.integers(0, ALPHABET, (T, lanes)), (np.arange(T) * 7) % 13
+    elif kind == "every_bin":  # every (context, token) of 765 x A hit
+        T = 800
+        n_ctx, ctx = 765, np.arange(T) % 765
+        tok = (np.arange(lanes)[None, :] + np.arange(T)[:, None]) % ALPHABET
+    else:  # a skewed stream in long runs, T ragged
+        n_ctx, ctx = 40, np.repeat(rng.integers(0, 40, T), 1)
+        ctx = np.repeat(ctx[: -(-T // 9)], 9)[:T]
+        tok = np.where(rng.random((T, lanes)) < 0.8, 0, rng.integers(0, ALPHABET, (T, lanes)))
+    tokp = torch.from_numpy(np.ascontiguousarray(tok.reshape(-1), dtype=np.int32)).to(dev)
+    return tokp, torch.from_numpy(ctx.astype(np.int64)).to(dev), n_ctx
+
+
+@pytest.mark.parametrize("lanes", [128, 256, 512, 1024])
+@pytest.mark.parametrize("kind", ["zeros_one_ctx", "all_max", "ctx_every_step", "every_bin", "runs_ragged"])
+def test_h1_stepped_matches_bincount_on_adversarial_streams(dev, kind, lanes):
+    """The stepped form against torch.bincount on the card: one hot bin in
+    one context, every token A - 1, a context that changes every step,
+    every bin of 765 x A hit, long runs; T never a multiple of a CTA's
+    step range. Two launches give the same counts."""
+    from jxl_tpu_torch.codec.histogram import histogram_stepped, histogram_stepped_plain
+
+    tokp, ctx, n_ctx = _adversarial_stream(kind, lanes, dev)
+    got = histogram_stepped(tokp, ctx, lanes, n_ctx)
+    assert torch.equal(got, histogram_stepped_plain(tokp, ctx, lanes, n_ctx))
+    assert torch.equal(got, histogram_stepped(tokp, ctx, lanes, n_ctx))
+    assert int(got.sum()) == tokp.numel()
+    if kind == "every_bin":
+        assert bool((got > 0).all())
+
+
+@pytest.mark.parametrize("nb", [1, 208, 511, 513, 190512])
+@pytest.mark.parametrize("kind", ["zeros", "all_max", "every_bin"])
+def test_h1_ac_matches_bincount_on_adversarial_tokens(dev, kind, nb):
+    """The AC form against torch.bincount on the card: every token 0, every
+    token A - 1 in one bucket, and every (position, bucket, token) hit once
+    nb >= 208; tiles of 512 blocks ragged at 511 and 513, and the 12 MP
+    block count. Two launches give the same counts."""
+    from jxl_tpu_torch.codec.histogram import ac_counts4, ac_counts4_plain
+    from jxl_tpu_torch.codec.layout import NNZ_Q
+    from jxl_tpu_torch.entropy.tokens import ALPHABET
+
+    b = np.arange(nb)[None, :, None]
+    p = np.arange(63)[None, None, :]
+    if kind == "zeros":
+        tok, qb = np.zeros((3, nb, 63)), np.random.default_rng(nb).integers(0, NNZ_Q, (3, nb))
+    elif kind == "all_max":
+        tok, qb = np.full((3, nb, 63), ALPHABET - 1), np.full((3, nb), NNZ_Q - 1)
+    else:
+        tok = np.broadcast_to((b // NNZ_Q + p) % ALPHABET, (3, nb, 63))
+        qb = np.broadcast_to(np.arange(nb) % NNZ_Q, (3, nb))
+    tok_t = torch.from_numpy(np.ascontiguousarray(tok, dtype=np.int32)).to(dev)
+    qb_t = torch.from_numpy(np.ascontiguousarray(qb, dtype=np.int64)).to(dev)
+    got = ac_counts4(tok_t, qb_t)
+    assert torch.equal(got, ac_counts4_plain(tok_t, qb_t))
+    assert torch.equal(got, ac_counts4(tok_t, qb_t))
+    assert int(got.sum()) == tok_t.numel()
+    if kind == "every_bin" and nb >= 208:
+        assert bool((got > 0).all())
+
+
+H1_CONTAINERS = {  # image, distance, effort, stripes (0: encode_image), H1 launches
+    "kodak d=1 e7": (_bench_image, 1.0, 7, 0, 2),
+    "12mp d=1 e7": (_photo_12mp, 1.0, 7, 0, 2),
+    "striped d=1 e7": (_bench_image, 1.0, 7, 3, 6),
+}
+
+
+@pytest.mark.parametrize("case", list(H1_CONTAINERS))
+def test_h1_containers_equal_the_plain_histograms(dev, monkeypatch, case):
+    """One encode with H1 and one with torch.bincount swapped in on the card
+    give byte-identical containers (the tables are the same integers);
+    H1 launches twice a VarDCT stream, and not at all with the swap."""
+    from jxl_tpu_torch.codec import encode
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.histogram import ac_counts4_plain, histogram_stepped_plain
+    from jxl_tpu_torch.codec.tiled import encode_image_striped
+
+    make, distance, effort, stripes, launches = H1_CONTAINERS[case]
+    img, cfg = make(), CodecConfig(distance=distance, effort=effort)
+
+    def run():
+        if stripes:
+            return encode_image_striped(img, cfg, n_stripes=stripes, device=dev)
+        return encode.encode_image(img, cfg, device=dev)
+
+    c0 = launch_counts()
+    with_h1 = run()
+    assert _since(c0)["hist"] == launches
+    monkeypatch.setattr(encode, "_histogram_stepped", histogram_stepped_plain)
+    monkeypatch.setattr(encode, "_ac_counts4", ac_counts4_plain)
+    c0 = launch_counts()
+    assert run() == with_h1
+    assert _since(c0)["hist"] == 0
+
+
+def test_encode_trace_has_no_aten_histogram(dev):
+    """Under torch.profiler one VarDCT encode on the card runs H1's two
+    kernels, once each, and no kernelHistogram1D (ATen's bincount; the
+    radix sort's own histogram kernel of `torch.argsort` stays)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jxl_tpu_torch.codec.config import CodecConfig
+    from jxl_tpu_torch.codec.encode import encode_image
+
+    img, cfg = _bench_image(), CodecConfig(distance=1.0, effort=7)
+    encode_image(img, cfg, device=dev)  # warm
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        encode_image(img, cfg, device=dev)
+        torch.cuda.synchronize(dev)
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    assert names and not [n for n in names if "kernelHistogram1D" in n]
+    assert sum("hist_stepped_kernel" in n for n in names) == 1 and sum("hist_ac_kernel" in n for n in names) == 1
 
 
 # ---- D1: the 2-D DCT / IDCT kernel (csrc/dct.cu) against float64 and cuBLAS

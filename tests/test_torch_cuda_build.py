@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from jxl_tpu_torch import cuda_build
+from jxl_tpu_torch.codec.histogram import ac_counts4, histogram_stepped
 from jxl_tpu_torch.codec.screen import screen_count
 from jxl_tpu_torch.cuda_build import CSRC, ENTRIES, KERNEL_SOURCES, launch_counts
 from jxl_tpu_torch.entropy.cuda_rans import decode_grouped_batched_cuda, decode_grouped_cuda
@@ -126,6 +127,8 @@ WRAPPERS = {
     "screen_count": screen_count,
     "dct2d": dct2d,
     "idct2d": idct2d,
+    "histogram_stepped": lambda m: histogram_stepped(m, m, 128, 1),
+    "ac_counts4": lambda m: ac_counts4(m, m),
     "measure_chain_cycles": lambda m: measure_chain_cycles(m.device),
 }
 

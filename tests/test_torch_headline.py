@@ -74,7 +74,8 @@ def test_json_holds_every_bench_key(result):
     assert result["device"] == {"name": "cpu", "power_limit_w": None}
     assert result["metric"] == "encode+decode MP/s on cpu (VarDCT d=1)"
     # off the card the wrappers run their plain versions: no launch, no trace
-    assert result["launches"] == {"rans_encode": 0, "rans_decode": 0, "rans_decode_batched": 0, "screen": 0, "dct2d": 0}
+    assert result["launches"] == {"rans_encode": 0, "rans_decode": 0, "rans_decode_batched": 0, "screen": 0, "dct2d": 0,
+                                   "hist": 0}
     assert result["trace"] is None
     assert result["grid_batch"] == 2 and result["reps"] == 1
     assert all(v > 0 for v in (result["value"], result["encode_mps"], result["decode_mps"]))
